@@ -11,6 +11,14 @@ def dot(a, b):
     return p[..., 0] + p[..., 1] + p[..., 2]
 
 
+def fma(a, b, c):
+    """a * b + c rounded once to f32, as a fused multiply-add (a product
+    of two f32 values is exact in f64). The JAX package's CPU build
+    contracts some `x * y + z` this way, and where rounding decides a
+    discrete outcome the port does the same."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def cross(a, b):
     ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]

@@ -68,21 +68,28 @@ def photon_state_to_host(state, channel=None):
         evidx=h.evidx.view(np.uint32), channel=channel)
 
 
-def run_steps(photons, geometry, seed, start_step, nsteps, blocks=None):
+def run_steps(photons, geometry, seed, start_step, nsteps, blocks=None,
+              use_weights=False, scatter_first=0):
     """Run up to `nsteps` steps from absolute step `start_step`, stopping
     early once every photon has terminated. Step s draws from a generator
     seeded by (seed, s), or from `blocks(s, b)`, which injects its (8, N)
-    uniform blocks (tests). Returns (photons, steps_done, alive count)."""
+    uniform blocks (tests). scatter_first applies at absolute step 0 only
+    (reference: propagate.cu:319), and any biasing turns traversal pruning
+    off, as in chroma_tpu.ops.propagate. Returns (photons, steps_done, alive
+    count)."""
     done = 0
     alive = int(photons.alive.sum())
     n, dev = len(photons), photons.pos.device
+    prune = scatter_first == 0
     while done < nsteps and alive:
         step = start_step + done
         if blocks is None:
             pool = DrawPool(n, dev, generator=make_generator(dev, seed, step))
         else:
             pool = DrawPool(n, dev, blocks=lambda b: blocks(step, b))
-        photons = propagate_step(photons, geometry, pool)
+        photons = propagate_step(
+            photons, geometry, pool, use_weights=use_weights,
+            scatter_first=scatter_first if step == 0 else 0, prune=prune)
         done += 1
         alive = int(photons.alive.sum())
     return photons, done, alive
@@ -110,12 +117,15 @@ def _write_back(final, orig_idx, current):
         getattr(final, f.name)[orig_idx] = getattr(current, f.name)
 
 
-def propagate(photons, geometry, seed, max_steps=100, step_chunk='auto'):
+def propagate(photons, geometry, seed, max_steps=100, step_chunk='auto',
+              use_weights=False, scatter_first=0):
     """Propagate a PhotonState to termination or `max_steps`; returns the
     final PhotonState in the input's lane order.
 
     step_chunk='auto' compacts after step 1 and then doubles the chunk (up
-    to CHUNK_CAP steps) at every boundary; an int fixes it."""
+    to CHUNK_CAP steps) at every boundary; an int fixes it. use_weights
+    and scatter_first select the weighted transport of the likelihood
+    biasing modes (see ops.photon.propagate_to_boundary)."""
     n = len(photons)
     orig_idx = torch.arange(n, device=photons.pos.device)
     final = photons.map(torch.clone)
@@ -140,7 +150,8 @@ def propagate(photons, geometry, seed, max_steps=100, step_chunk='auto'):
                 current = current.map(lambda a: a[sel])
                 orig_idx = orig_idx[sel]
         current, _, n_alive = run_steps(current, geometry, seed, step,
-                                        nsteps)
+                                        nsteps, use_weights=use_weights,
+                                        scatter_first=scatter_first)
         step += nsteps
         if n_alive == 0:
             break

@@ -14,6 +14,8 @@ import math
 import numpy as np
 import torch
 
+from chroma_tpu_torch.ops.linalg import fma
+
 
 def _flat(parts):
     for p in parts:
@@ -66,6 +68,37 @@ def sample_cdf_pairs(u, cdf_x, cdf_y):
     f = torch.where(dx0, f_lo, lerp)
     f = torch.where(u < xp[0], fp[0], f)
     return torch.where(u > xp[-1], fp[-1], f)
+
+
+def sample_cdf_uniform_rows(u, table, row_idx, x0, dx):
+    """Inverse-CDF draw on a uniform x grid with a per-lane CDF row
+    (reference: random.h:38-55). table: (R, n) cumulative values; row_idx:
+    (N,) row per lane; u: (N,). Bisection for a fixed ceil(log2(n))
+    iterations with converged lanes masked, as the JAX sampler. The final
+    x0 + dx*lower + dx*frac is rounded as XLA compiles it on the CPU:
+    fma(dx, lower, x0) + dx*frac, and with x0 == 0 (the time grid), where
+    the add of zero folds away, fma(dx, lower, dx*frac)."""
+    n = table.shape[1]
+    iters = max(1, math.ceil(math.log2(n)))
+    row = row_idx.to(torch.int64)
+    lower = torch.zeros_like(row)
+    upper = torch.full_like(row, n - 1)
+    for _ in range(iters):
+        active = lower < upper - 1
+        half = (lower + upper) // 2
+        go_left = u < table[row, half]
+        upper = torch.where(active & go_left, half, upper)
+        lower = torch.where(active & ~go_left, half, lower)
+    y_lo = table[row, lower]
+    y_hi = table[row, upper]
+    dy = y_hi - y_lo
+    frac = torch.where(dy > 0, (u - y_lo) / torch.where(dy > 0, dy, 1.0),
+                       0.0)
+    lower = lower.to(torch.float32)
+    dx_t = torch.full_like(lower, dx)
+    if float(np.float32(x0)) == 0.0:
+        return fma(dx_t, lower, dx * frac)
+    return fma(dx_t, lower, torch.full_like(lower, x0)) + dx * frac
 
 
 class DrawPool:

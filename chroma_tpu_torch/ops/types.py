@@ -10,7 +10,8 @@ Differences:
     monolithic wide table): every geometry goes through the instanced
     table, as in chroma_tpu, where flattened meshes become one identity
     instance;
-  * wire planes are not ported yet (build_geometry_arrays raises).
+  * the analytic wire planes' (u, v, w) frame is orthonormalised on the
+    host, as in chroma_tpu.ops.types.
 
 Every container has `.to(device)`.
 """
@@ -106,6 +107,29 @@ class SurfaceTables:
 
 
 @dataclasses.dataclass
+class WirePlaneArrays:
+    """Analytic wire-plane parameters, SoA over planes; the (u, v, w)
+    frame is orthonormalised on the host so the device math stays in f32
+    (see chroma_tpu.ops.types.WirePlaneArrays)."""
+    origin: torch.Tensor  # (P,3) f32
+    u: torch.Tensor       # (P,3) f32 unit wire axis
+    v: torch.Tensor       # (P,3) f32 unit in-plane normal to the wires
+    w: torch.Tensor       # (P,3) f32 plane normal (u x v)
+    pitch: torch.Tensor   # (P,) f32
+    radius: torch.Tensor
+    umin: torch.Tensor
+    umax: torch.Tensor
+    vmin: torch.Tensor
+    vmax: torch.Tensor
+    v0: torch.Tensor
+    surface_index: torch.Tensor         # (P,) i32, -1 = no surface
+    material_inner_index: torch.Tensor  # (P,) i32
+    material_outer_index: torch.Tensor  # (P,) i32
+
+    to = _to
+
+
+@dataclasses.dataclass
 class DetectorArrays:
     solid_id_to_channel_index: torch.Tensor  # (n_solids,) i32
     time_cdf_x: torch.Tensor
@@ -147,9 +171,14 @@ class GeometryArrays:
     inst: InstanceArrays | None
     materials: MaterialTables
     surfaces: SurfaceTables
+    wireplanes: WirePlaneArrays | None
     detector: DetectorArrays | None
 
     to = _to
+
+    @property
+    def has_wireplanes(self):
+        return self.wireplanes is not None
 
 
 def _interp_property(prop, grid):
@@ -317,6 +346,49 @@ def pack_material_codes(material1_index, material2_index, surface_index):
             | ((surface_index.astype(np.uint32) & 0xff) << 8))
 
 
+def _orthonormal_frame(u, v):
+    "Gram-Schmidt (u, v) -> orthonormal (u, v, w=u x v), in f64."
+    u = np.asarray(u, dtype=np.float64)
+    v = np.asarray(v, dtype=np.float64)
+    u = u / np.linalg.norm(u)
+    v = v - np.dot(v, u) * u
+    v = v / np.linalg.norm(v)
+    return u, v, np.cross(u, v)
+
+
+def build_wireplane_arrays(wireplanes, material_lookup, surface_lookup):
+    """The wire planes of a geometry as WirePlaneArrays (None without
+    any); `*_lookup` map id(material or surface) to its table index."""
+    if not wireplanes:
+        return None
+    P = len(wireplanes)
+    scalars = ('pitch', 'radius', 'umin', 'umax', 'vmin', 'vmax', 'v0')
+    fields = {name: np.zeros(P, dtype=np.float32) for name in scalars}
+    frame = {name: np.zeros((P, 3), dtype=np.float32)
+             for name in ('origin', 'u', 'v', 'w')}
+    surface_index = np.full(P, -1, dtype=np.int32)
+    mat_inner = np.zeros(P, dtype=np.int32)
+    mat_outer = np.zeros(P, dtype=np.int32)
+
+    for i, wp in enumerate(wireplanes):
+        frame['origin'][i] = wp.origin
+        frame['u'][i], frame['v'][i], frame['w'][i] = \
+            _orthonormal_frame(wp.u, wp.v)
+        for name in scalars:
+            fields[name][i] = getattr(wp, name)
+        if wp.surface is not None:
+            surface_index[i] = surface_lookup[id(wp.surface)]
+        mat_inner[i] = material_lookup[id(wp.material_inner)]
+        mat_outer[i] = material_lookup[id(wp.material_outer)]
+
+    return WirePlaneArrays(
+        **{k: _t(v) for k, v in frame.items()},
+        **{k: _t(v) for k, v in fields.items()},
+        surface_index=_t(surface_index),
+        material_inner_index=_t(mat_inner),
+        material_outer_index=_t(mat_outer))
+
+
 def build_detector_arrays(detector):
     """Channel map + time/charge CDFs; charge_unit quantizes summed charge
     to 16 bits like the reference DAQ."""
@@ -398,12 +470,11 @@ def build_geometry_arrays(geometry, wavelengths=None, times=None):
     No BVH needs to be attached to `geometry`."""
     if not hasattr(geometry, 'mesh'):
         geometry.flatten()
-    if getattr(geometry, 'wireplanes', None):
-        raise NotImplementedError('wire planes are not ported to the torch '
-                                  'backend yet')
 
     materials = list(geometry.unique_materials)
     surfaces = list(geometry.unique_surfaces)
+    material_lookup = {id(m): i for i, m in enumerate(materials)}
+    surface_lookup = {id(s): i for i, s in enumerate(surfaces)}
 
     material_codes = pack_material_codes(geometry.material1_index,
                                          geometry.material2_index,
@@ -460,6 +531,9 @@ def build_geometry_arrays(geometry, wavelengths=None, times=None):
         inst=inst_arrays,
         materials=build_material_tables(materials, wavelengths, times),
         surfaces=build_surface_tables(surfaces, wavelengths),
+        wireplanes=build_wireplane_arrays(
+            getattr(geometry, 'wireplanes', None), material_lookup,
+            surface_lookup),
         detector=build_detector_arrays(geometry),
     )
 
@@ -483,14 +557,11 @@ def from_jax_arrays(ga):
     """The port's GeometryArrays from a chroma_tpu GeometryArrays (the JAX
     device arrays are read with np.asarray, field by field). Carries a
     geometry built once by the JAX package across to the port; the DFS
-    arrays are dropped and wire planes are refused, as in
-    build_geometry_arrays. Needs no jax import of its own."""
+    arrays are dropped, as in build_geometry_arrays. Needs no jax import
+    of its own."""
     if ga.wide is None or not hasattr(ga.wide, 'n_instances'):
         raise NotImplementedError('the torch port traverses instanced wide '
                                   'BVHs only')
-    if getattr(ga, 'wireplanes', None) is not None:
-        raise NotImplementedError('wire planes are not ported to the torch '
-                                  'backend yet')
     w = ga.wide
     wide = InstancedBVH(rows=_t(w.rows), max_depth=w.max_depth,
                         fanout=w.fanout, leaf_size=w.leaf_size,
@@ -500,6 +571,8 @@ def from_jax_arrays(ga):
         _from_jax_struct(InstanceArrays, ga.inst)
     det = None if ga.detector is None else \
         _from_jax_struct(DetectorArrays, ga.detector)
+    wires = None if ga.wireplanes is None else \
+        _from_jax_struct(WirePlaneArrays, ga.wireplanes)
 
     def arr(name):
         v = getattr(ga, name)
@@ -512,4 +585,4 @@ def from_jax_arrays(ga):
         wide=wide, inst=inst,
         materials=_from_jax_struct(MaterialTables, ga.materials),
         surfaces=_from_jax_struct(SurfaceTables, ga.surfaces),
-        detector=det)
+        wireplanes=wires, detector=det)

@@ -1,10 +1,13 @@
 """Simulation: the top-level facade of the torch port (counterpart of
-chroma_tpu.sim.Simulation, propagation and DAQ part).
+chroma_tpu.sim.Simulation).
 
 Owns the device geometry, batches incoming events to photons_per_batch,
 propagates each batch, extracts flat hits with channels and runs the DAQ,
-and yields the shared chroma_tpu.event.Event objects. Every random stream
-comes from a torch.Generator seeded from (seed, batch, ...).
+and yields the shared chroma_tpu.event.Event objects. It also serves the
+PDF API that chroma_tpu.likelihood.Likelihood drives (create_pdf,
+eval_pdf, setup_kernel, eval_kernel). Every random stream comes from a
+torch.Generator seeded from (seed, propagation counter, ...): each
+simulate batch and each PDF-path propagation takes the next count.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from chroma_tpu import event, itertoolset
 from chroma_tpu.detector import Detector
 from chroma_tpu.geometry import Geometry, Mesh, Solid, vacuum
 from chroma_tpu_torch.ops import daq as daq_ops
-from chroma_tpu_torch.ops.photon import check_supported
+from chroma_tpu_torch.ops import pdf as pdf_ops
+from chroma_tpu_torch.ops.photon import PhotonState
 from chroma_tpu_torch.ops.propagate import (propagate,
                                             photon_state_from_host,
                                             photon_state_to_host)
@@ -26,6 +30,7 @@ from chroma_tpu_torch.ops.sample import make_generator
 from chroma_tpu_torch.ops.types import build_geometry_arrays
 
 DAQ_SITE = 7000  # generator id of event i's DAQ draws: (seed, batch, 7000+i)
+PDF_MAX_STEPS = 100  # steps of each PDF-path propagation, as in chroma_tpu
 
 
 def pick_seed():
@@ -61,10 +66,8 @@ class Simulation:
 
         geometry_arrays: prebuilt chroma_tpu_torch GeometryArrays (e.g.
         ops.types.from_jax_arrays of a JAX build), which skips the host
-        build. Raises RuntimeError for a CUDA device when none is present,
-        and NotImplementedError for geometries this port does not cover
-        yet (surface models other than the default, reemission, wire
-        planes)."""
+        build. Raises RuntimeError for a CUDA device when none is
+        present."""
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('device %r requested but CUDA is not '
@@ -75,11 +78,18 @@ class Simulation:
                                                     wavelengths, times)
         else:
             self.detector = detector
-        check_supported(geometry_arrays)
         self.gpu_geometry = geometry_arrays.to(self.device)
         self.seed = pick_seed() if seed is None else int(seed)
         self.step_chunk = step_chunk
         self._batch = 0
+        self._kernel = None
+        self._pdf = None
+
+    def _next_seed(self):
+        "(seed, counter) of the next propagation's random streams."
+        batch_seed = (self.seed, self._batch)
+        self._batch += 1
+        return batch_seed
 
     @property
     def has_channels(self):
@@ -128,8 +138,7 @@ class Simulation:
         batch = event.Photons.join(sources) if len(sources) > 1 \
             else sources[0]
         state = photon_state_from_host(batch, self.device)
-        batch_seed = (self.seed, self._batch)
-        self._batch += 1
+        batch_seed = self._next_seed()
 
         result = propagate(state, self.gpu_geometry, batch_seed,
                            max_steps=max_steps, step_chunk=self.step_chunk)
@@ -171,3 +180,93 @@ class Simulation:
                 arrays = daq_ops.run_daq(ev_state, self.gpu_geometry, gen)
                 ev.channels = daq_ops.channels_to_host(arrays)
             yield ev
+
+    # ------------------------------------------------------------------
+    # PDF evaluation API (used by chroma_tpu.likelihood)
+    # ------------------------------------------------------------------
+
+    def create_pdf(self, iterable, tbins, trange, qbins, qrange,
+                   nreps=1, ndaq=1):
+        """Histogram the DAQ response of many events into a binned
+        (channel, t, q) PDF. Returns (hitcount, pdf) u32 numpy arrays."""
+        accum = pdf_ops.PDFAccumulator(self.gpu_geometry, tbins, trange,
+                                       qbins, qrange)
+        for ev in iterable:
+            state0 = self._source_state(ev.photons_beg)
+            for _ in range(nreps):
+                accum.add(self._propagate_daq(state0, ndaq), ndaq=ndaq)
+        return accum.get()
+
+    def setup_pdf_eval(self, event_hits, min_twidth, trange, min_qwidth,
+                       qrange, min_bin_content=100, time_only=True):
+        """Prepare likelihood PDF evaluation against an observed event
+        (reference API: gpu/pdf.py:229-283)."""
+        self._pdf = pdf_ops.PDFEval(self.gpu_geometry, event_hits,
+                                    min_twidth, trange, min_qwidth, qrange,
+                                    min_bin_content, time_only)
+
+    def eval_pdf(self, event_channels, iterable, min_twidth, trange,
+                 min_qwidth, qrange, min_bin_content=100, nreps=1, ndaq=1,
+                 time_only=True):
+        """Probability of each channel's observed hit given simulated
+        events: (hitcount, pdf_value, pdf_uncertainty) per channel."""
+        self.setup_pdf_eval(event_channels, min_twidth, trange, min_qwidth,
+                            qrange, min_bin_content=min_bin_content,
+                            time_only=time_only)
+        for ev in iterable:
+            state0 = self._source_state(ev.photons_beg)
+            for _ in range(nreps):
+                self._pdf.accumulate(self._propagate_daq(state0, ndaq),
+                                     ndaq=ndaq)
+        return self._pdf.get()
+
+    def setup_kernel(self, event_channels, bandwidth_iterable, trange,
+                     qrange, nreps=1, ndaq=1, time_only=True,
+                     scale_factor=1.0):
+        """Accumulate moments from an oversampled MC run and derive the
+        per-channel KDE bandwidths (reference API: gpu/pdf.py:13-112)."""
+        self._kernel = pdf_ops.KernelPDF(self.gpu_geometry, trange, qrange,
+                                         time_only=time_only)
+        for ev in bandwidth_iterable:
+            for _ in range(nreps):
+                self._kernel.accumulate_moments(self._run_daq_once(ev,
+                                                                   ndaq))
+        hit = np.asarray(event_channels.hit).astype(bool)
+        t = np.asarray(event_channels.t, dtype=np.float32)
+        q = np.asarray(event_channels.q, dtype=np.float32)
+        self._kernel.compute_bandwidth(hit, t, q, scale_factor=scale_factor)
+        self._kernel.setup_kernel(hit, t, q)
+
+    def eval_kernel(self, event_channels, kernel_iterable, trange, qrange,
+                    nreps=1, ndaq=1, time_only=True):
+        """Per-channel KDE PDF values at the observed hits; needs a prior
+        setup_kernel() call."""
+        if self._kernel is None:
+            raise RuntimeError('call setup_kernel() first')
+        self._kernel.clear_kernel()
+        for ev in kernel_iterable:
+            for _ in range(nreps):
+                self._kernel.accumulate_kernel(self._run_daq_once(ev, ndaq))
+        return self._kernel.get_kernel_eval()
+
+    def _source_state(self, photons):
+        """An event's photons on the device: uploaded once, so the nreps
+        propagations of a likelihood loop reuse them (a PhotonState passes
+        through)."""
+        if isinstance(photons, PhotonState):
+            return photons
+        return photon_state_from_host(photons, self.device)
+
+    def _propagate_daq(self, state, ndaq):
+        """Propagate a device PhotonState (not modified) with the next
+        seed, then run the DAQ (ndaq replicas) on its own generator."""
+        seed = self._next_seed()
+        result = propagate(state, self.gpu_geometry, seed,
+                           max_steps=PDF_MAX_STEPS,
+                           step_chunk=self.step_chunk)
+        gen = make_generator(self.device, *seed, DAQ_SITE)
+        return daq_ops.run_daq(result, self.gpu_geometry, gen, ndaq=ndaq)
+
+    def _run_daq_once(self, ev, ndaq):
+        "Propagate one event's photons and run the DAQ (ndaq replicas)."
+        return self._propagate_daq(self._source_state(ev.photons_beg), ndaq)

@@ -79,3 +79,38 @@ def test_run_daq_bitwise(hits, ndaq):
     # bit 31 (NAN_ABORT) survives the OR as a u32 history
     ch = tdaq.channels_to_host(got)
     assert ch.flags.dtype == np.uint32 and (ch.flags >> 31).any()
+
+
+@pytest.mark.parametrize('weight,state', [(0.6, event.SURFACE_DETECT),
+                                          (1.0, event.SURFACE_ABSORB)])
+def test_run_daq_weight_and_detection_state_bitwise(hits, weight, state):
+    """global_weight scales every photon's keep probability, and
+    detection_state picks the flag bit that counts as a detection (the
+    weighted likelihood runs); wire hits (last-hit triangle -2) are no
+    triangle."""
+    ga, ta, js, ts = hits
+    lh = ts.last_hit_triangle.clone()
+    lh[::7] = -2
+    ts = ts.replace(last_hit_triangle=lh)
+    js = js.replace(last_hit_triangle=jax.numpy.asarray(lh.numpy()))
+    key = make_key(23)
+    ref = jdaq.run_daq(js, ga, key, ndaq=3, global_weight=weight,
+                       detection_state=state)
+
+    def uniforms(block, site, shape):
+        return np.asarray(jax.random.uniform(site_key(key, site), shape))
+
+    got = tdaq.run_daq(ts, ta, ndaq=3, uniforms=uniforms,
+                       global_weight=weight, detection_state=state)
+    for name in ('earliest_time', 'charge', 'histories'):
+        a = np.asarray(getattr(ref, name))
+        a = a.view(np.int32) if a.dtype == np.uint32 else a
+        np.testing.assert_array_equal(getattr(got, name).numpy(), a,
+                                      err_msg=name)
+    hist = got.histories.numpy().view(np.uint32)
+    assert ((hist & state) != 0).sum() > 0
+    base = tdaq.run_daq(ts, ta, ndaq=3, uniforms=uniforms,
+                        detection_state=state)
+    assert (got.charge.numpy() <= base.charge.numpy()).all()
+    if weight < 1.0:
+        assert got.charge.sum() < base.charge.sum()

@@ -78,3 +78,35 @@ def test_sample_cdf_pairs_matches_interp(table):
     np.testing.assert_array_equal(
         np.asarray(jsample.sample_cdf_pairs(jnp.asarray(u), jnp.asarray(x),
                                             jnp.asarray(y))), got)
+
+
+@pytest.mark.parametrize('grid', ['wavelength', 'time'])
+def test_sample_cdf_uniform_rows_matches_jax(grid):
+    """Per-lane CDF rows (bulk and WLS reemission), on the standard grids,
+    bit for bit against the JAX bisection compiled as the step compiles
+    it, with u at the table's end and on its knots. u is at least 2^-24,
+    the pool's smallest draw: XLA on the CPU flushes the denormals of a
+    CDF's far tail to zero, so a denormal u would compare differently."""
+    from chroma_tpu.geometry import standard_wavelengths, standard_times
+    x = standard_wavelengths if grid == 'wavelength' else standard_times
+    scale = 30.0 if grid == 'wavelength' else 20.0
+    rows = []
+    for r in range(5):
+        pdf = np.exp(-0.5 * ((x - x[len(x) // 4] - 2 * scale * r) / scale)
+                     ** 2) + (r == 4)
+        cdf = np.concatenate([[0.0], np.cumsum((pdf[1:] + pdf[:-1]) / 2)])
+        rows.append(cdf / cdf[-1])
+    table = np.asarray(rows, np.float32)
+    table[3, :10] = 0.0                    # a flat start: zero-width bins
+    rs = np.random.RandomState(6)
+    u = np.concatenate([rs.uniform(size=6000), table[2, ::7], [1.0]]
+                       ).astype(np.float32)
+    u = u[u >= 2.0 ** -24]
+    row = rs.randint(0, 5, len(u)).astype(np.int32)
+    x0, dx = float(x[0]), float(x[1] - x[0])
+    ref = np.asarray(jax.jit(lambda u, t, r: jsample.sample_cdf_uniform_rows(
+        u, t, r, x0, dx))(u, table, row))
+    got = tsample.sample_cdf_uniform_rows(
+        torch.from_numpy(u), torch.from_numpy(table), torch.from_numpy(row),
+        x0, dx).numpy()
+    np.testing.assert_array_equal(got, ref)
