@@ -10,20 +10,31 @@ Phases, each printing its results; any failure raises and the exit code is
 non-zero:
 
   0. card and software (nvidia-smi name and power limit, torch, CUDA);
-  1. build the visit kernel (csrc/visit_kernel.cu) with nvcc;
-  2. the kernel against its plain PyTorch version on the card, 65,536 rays,
-     on the visit-kernel fixture geometry in f32, bf16 and q8 bounds, on
-     demo.tiny() and on the quick demo detector: triangles, instance ids,
-     codes and visit counts equal, distances and normals to rtol 1e-5;
+  1. build, both at once, into build/: the visit kernel
+     (chroma_tpu_torch/csrc/visit_kernel.cu) with nvcc and the host
+     geometry kit (chroma_tpu_torch/csrc/geometry_kit.cpp) with g++;
+     print ptxas's registers and spills;
+  2. the kernel against its plain PyTorch version on the card, on 10^4
+     rays (a grid of one group a ray) and on 2^18 (persistent groups),
+     on the visit-kernel fixture geometry, on demo.tiny() and on the quick
+     demo detector, each in f32 bounds at fanout 16 and bf16 and q8 bounds
+     at fanout 32: triangles, instance ids, codes and visit counts equal,
+     distances and normals to rtol 1e-5;
   3. three propagation steps of 65,536 quick-detector photons on the card
      (kernel) and on the CPU (plain version) with the same uniforms: on
      >= 99.9% of lanes flags, last-hit triangles and media equal and
      floats to rtol 1e-5 (absolute floor: 1e-5 of the field's scale);
-  4. kernel and plain traversal times at 2^20 rays (CUDA events, median of
-     5 runs);
+  4. K1's times at 2^20 and at 10^4 rays from the centre of the quick
+     detector (CUDA events, median of runs taken in turns): the
+     warp-cooperative walk the port runs, the first design (one thread a
+     ray) and the plain version, both designs held to the plain version's
+     outputs, with the visits by node kind and the rows visited and the
+     bound they give; then the two launch choices `traverse` makes (16 or
+     32 lanes a ray; a grid of one group a ray or persistent groups) at
+     the ray counts a bomb's compacted steps launch;
   5. the main path: Simulation(quick detector, device='cuda') on a 2^20
-     photon bomb with run_daq=True, counting the kernel's launches; its
-     detected fraction is checked against a 65,536-photon run on the CPU;
+     photon bomb with run_daq=True, counting the kernel's launches and the
+     rays of each; its detected fraction is checked against a 65,536-photon run on the CPU;
   6. full optics ("quick-optics"): the quick detector rebuilt with every
      surface model -- thin-film complex photocathodes, angular light
      cones, dichroic PMT backs, a wavelength-shifting outer sphere -- in
@@ -42,26 +53,42 @@ non-zero:
      summed hit probability is checked against a CPU run.
 
 The kernel's launches are counted on each main path (phases 5 to 8, reset
-just before and read just after) and printed per phase. The last lines are
-a JSON object describing the kernels, and {"ok": true, "device": {...}}.
-Needs CUDA and the repository checkout.
+just before and read just after) and printed per phase; the first design is
+launched on none of them. The last lines are a JSON object describing the
+kernels, and {"ok": true, "device": {...}}. Needs CUDA and the repository
+checkout.
 """
+import collections
+import contextlib
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 N_CHECK = 65536
 N_TIME = 1 << 20
+N_SMALL = 10000     # rays of one likelihood-path query (phase 8)
 N_BOMB = 1 << 20
 QUICK = (4000.0, 4500.0, 400.0)     # demo.detector args of the quick cell
 RTOL = 1e-5
 GUN_MEV = 10.0      # phase 8's electron: ~10^4 photons (1000 per MeV)
 LIKELIHOOD = (4, 4, 50)             # phase 8's nevals, nreps, ndaq
+# (packed_fanout, bounds_fmt) of each table format: f32 at fanout 16, bf16
+# and q8 at fanout 32
+FORMATS = {'f32': (0, 'f32'), 'bf16': (32, 'bf16'), 'q8': (32, 'q8')}
+# phase 4's ray counts for the launch choices: the powers of two a bomb's
+# compacted steps launch, and a likelihood query's N_SMALL
+SWEEP = sorted([1 << k for k in range(13, 21)] + [N_SMALL])
+# published peaks of one H100 SXM at 700 W: device memory, f32 outside the
+# tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
 
 
 def log(*args):
@@ -75,13 +102,26 @@ def card_line():
     return proc.stdout.strip().splitlines()[0]
 
 
-def fixture_table(fmt):
-    "The tests/test_visit_kernel.py fixture geometry as a port table."
-    from chroma_tpu.geometry import Geometry, Solid
-    from chroma_tpu.demo.optics import water, glass
-    from chroma_tpu.make import box, sphere
+def table_of(geo, fmt):
+    """The instanced table of flattened geometry `geo` in bounds format
+    `fmt` (FORMATS), built as build_geometry_arrays builds it."""
     from chroma_tpu_torch.bvh.wide import build_instanced_bvh
     from chroma_tpu_torch.ops.types import pack_material_codes
+    codes = pack_material_codes(geo.material1_index, geo.material2_index,
+                                geo.surface_index)
+    tri_base = np.cumsum([0] + [len(s.mesh.triangles) for s in geo.solids])
+    instances = [(s.mesh, geo.solid_rotations[i], geo.solid_displacements[i],
+                  int(tri_base[i])) for i, s in enumerate(geo.solids)]
+    packed, bounds = FORMATS[fmt]
+    return build_instanced_bvh(instances, material_codes=codes,
+                               packed_fanout=packed, bounds_fmt=bounds)
+
+
+def fixture_table(fmt):
+    "The tests/test_visit_kernel.py fixture geometry as a port table."
+    from chroma_tpu_torch.geometry import Geometry, Solid
+    from chroma_tpu_torch.demo.optics import water, glass
+    from chroma_tpu_torch.make import box, sphere
     geo = Geometry(water)
     geo.add_solid(Solid(box(100.0, 80.0, 60.0), glass, water))
     geo.add_solid(Solid(sphere(30.0, nsteps=24), glass, water),
@@ -89,19 +129,19 @@ def fixture_table(fmt):
     geo.add_solid(Solid(box(40.0, 40.0, 40.0), glass, water),
                   displacement=(-120.0, 30.0, 0.0))
     geo.flatten()
-    codes = pack_material_codes(geo.material1_index, geo.material2_index,
-                                geo.surface_index)
-    tri_base = np.cumsum([0] + [len(s.mesh.triangles) for s in geo.solids])
-    instances = [(s.mesh, geo.solid_rotations[i], geo.solid_displacements[i],
-                  int(tri_base[i])) for i, s in enumerate(geo.solids)]
-    packed, bounds = {'f32': (0, 'f32'), 'bf16': (32, 'bf16'),
-                      'q8': (32, 'q8')}[fmt]
-    return build_instanced_bvh(instances, material_codes=codes,
-                               packed_fanout=packed, bounds_fmt=bounds)
+    return table_of(geo, fmt)
+
+
+def detector_tables(geo, ga, device):
+    """geo's table in each bounds format on `device`; bf16 is the one
+    build_geometry_arrays made (ga.wide), which the main path runs."""
+    assert ga.wide.bounds_fmt == 'bf16' and ga.wide.fanout == 32
+    return {fmt: (ga.wide if fmt == 'bf16' else table_of(geo, fmt)).to(
+        device) for fmt in FORMATS}
 
 
 def detector_arrays(args):
-    from chroma_tpu import demo
+    from chroma_tpu_torch import demo
     from chroma_tpu_torch.ops.types import build_geometry_arrays
     t0 = time.perf_counter()
     geo = demo.detector(*args)
@@ -144,6 +184,26 @@ def ray_mix(n, seed, radius, device):
             t(limit, np.float32), rs.uniform(size=n) < 0.5)
 
 
+def assert_same(name, got, ref):
+    """Kernel outputs `got` against the plain version's `ref` (numpy):
+    triangles, codes, instance ids and visits equal, distances and normals
+    of hits to RTOL. Returns the largest absolute distance/normal
+    difference on hits."""
+    tri, dist, code, normal, iid, visits = ref
+    for label, a, b in (('tri', got[0], tri), ('code', got[2], code),
+                        ('iid', got[4], iid), ('visits', got[5], visits)):
+        np.testing.assert_array_equal(a, b, err_msg='%s %s' % (name, label))
+    hit = tri >= 0
+    np.testing.assert_array_equal(got[1][~hit], dist[~hit])
+    np.testing.assert_allclose(got[1][hit], dist[hit], rtol=RTOL,
+                               err_msg=name + ' dist')
+    np.testing.assert_allclose(got[3][hit], normal[hit], rtol=RTOL,
+                               atol=RTOL * np.abs(normal[hit]).max(),
+                               err_msg=name + ' normal')
+    return max(float(np.abs(got[1][hit] - dist[hit]).max(initial=0.0)),
+               float(np.abs(got[3][hit] - normal[hit]).max(initial=0.0)))
+
+
 def compare_kernel(name, table, rays):
     """Kernel against the plain traversal on the same card; returns the
     largest absolute distance/normal difference on hits."""
@@ -157,22 +217,13 @@ def compare_kernel(name, table, rays):
     ref = [x.cpu().numpy() for x in mesh_wide.traverse(*args)]
     got = [x.cpu().numpy() for x in visit_kernel.traverse(*args)]
     torch.cuda.synchronize()
-    tri, dist, code, normal, iid, visits = ref
-    for label, a, b in (('tri', got[0], tri), ('code', got[2], code),
-                        ('iid', got[4], iid), ('visits', got[5], visits)):
-        np.testing.assert_array_equal(a, b, err_msg='%s %s' % (name, label))
-    hit = tri >= 0
-    np.testing.assert_array_equal(got[1][~hit], dist[~hit])
-    np.testing.assert_allclose(got[1][hit], dist[hit], rtol=RTOL,
-                               err_msg=name + ' dist')
-    np.testing.assert_allclose(got[3][hit], normal[hit], rtol=RTOL,
-                               atol=RTOL * np.abs(normal[hit]).max(),
-                               err_msg=name + ' normal')
-    err = max(float(np.abs(got[1][hit] - dist[hit]).max(initial=0.0)),
-              float(np.abs(got[3][hit] - normal[hit]).max(initial=0.0)))
-    log('  %-22s %6d rays: %5.1f%% hit, mean visits %.2f, max %d, equal '
-        '(max |diff| %.3g)' % (name, len(tri), 100.0 * hit.mean(),
-                               visits.mean(), visits.max(), err))
+    err = assert_same(name, got, ref)
+    tri, visits = ref[0], ref[5]
+    log('  %-22s %6d rays (%s): %5.1f%% hit, mean visits %.2f, max %d, '
+        'equal (max |diff| %.3g)' % (
+            name, len(tri), 'persistent' if len(tri)
+            >= visit_kernel.PERSISTENT_MIN_RAYS else 'grid',
+            100.0 * (tri >= 0).mean(), visits.mean(), visits.max(), err))
     return err
 
 
@@ -180,7 +231,7 @@ def compare_steps(ga, device, n, nsteps):
     """`nsteps` propagation steps on the card and on the CPU with the same
     injected uniforms; >= 99.9% of the lanes must agree."""
     import torch
-    from chroma_tpu.generator import photon_bomb
+    from chroma_tpu_torch.generator import photon_bomb
     from chroma_tpu_torch.ops.photon import propagate_step
     from chroma_tpu_torch.ops.propagate import photon_state_from_host
     from chroma_tpu_torch.ops.sample import DrawPool
@@ -231,21 +282,61 @@ def compare_steps(ga, device, n, nsteps):
                                  int(gpu.alive.sum())))
 
 
-def time_cuda(fn, reps=5):
-    "Median milliseconds of fn() over `reps` runs, by CUDA events."
+def time_turns(fns, rounds=6):
+    """Milliseconds of each fns[name]() by CUDA events, all run in turns
+    (forward order, then backward, `rounds` times) after one warm-up run
+    each: (medians by name, all runs by name)."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    for fn in fns.values():
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times)), times
+    torch.cuda.synchronize()
+    runs = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[name]()
+            end.record()
+            end.synchronize()
+            runs[name].append(start.elapsed_time(end))
+    return {name: float(np.median(v)) for name, v in runs.items()}, runs
+
+
+def k1_bound(table, n, kinds, rows_seen):
+    """The least time (ms) an H100 at 700 W could take for one K1 query of
+    n rays (origin and direction only) on `table` whose walk makes `kinds`
+    = (internal, leaf, instance) visits to `rows_seen` distinct rows: the
+    larger of its bytes (each row visited read once, 24 bytes in and 32
+    out a ray) over PEAK_BYTES_S and its f32
+    operations over PEAK_F32_S. Operations, counted from the plain
+    version's arithmetic (csrc/visit_kernel.cu's note): a sweep of an
+    internal or instance row 12 + 25 a child (q8: 21 + 32), an instance
+    entry 33 more, a leaf 55 a triangle slot. Returns (bound ms, 'bytes' or
+    'operations', operations, bytes)."""
+    from chroma_tpu_torch.bvh.wide import fmt_of
+    width = table.rows.shape[1]
+    q8 = fmt_of(table) == 'q8'
+    sweep = (21 if q8 else 12) + (32 if q8 else 25) * table.fanout
+    v_int, v_leaf, v_inst = (int(k) for k in kinds)
+    ops = v_int * sweep + v_inst * (33 + sweep) \
+        + v_leaf * 55 * table.leaf_size
+    nbytes = 4 * rows_seen * width + n * (24 + 32)
+    t_ops = ops / PEAK_F32_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes
+            else 'bytes', ops, nbytes)
+
+
+def ptxas_summary(text):
+    "'N kernels, registers lo-hi, spill stores up to B bytes' of nvcc -v."
+    regs = [int(x) for x in re.findall(r'Used (\d+) registers', text)]
+    spills = [int(x) for x in re.findall(r'(\d+) bytes spill stores', text)]
+    if not regs:
+        return 'no ptxas report (library from an earlier build)'
+    return '%d kernels, registers %d-%d, spill stores up to %d bytes' % (
+        len(regs), min(regs), max(regs), max(spills, default=0))
 
 
 def detected_fraction_check(frac_a, n_a, frac_b, n_b, label):
@@ -265,15 +356,15 @@ FLAG_BITS = ('SURFACE_DETECT', 'SURFACE_ABSORB', 'SURFACE_REEMIT',
 
 def flag_counts(flags):
     "Photons with each history bit set."
-    from chroma_tpu import event
+    from chroma_tpu_torch import event
     return {name: int(((flags & getattr(event, name)) != 0).sum())
             for name in FLAG_BITS}
 
 
 def quick_optics_detector():
     """demo.detector(4000, 4500, 400)'s placement (630 PMTs) rebuilt with
-    chroma_tpu.pmt's public functions, with every surface model and bulk
-    reemission:
+    chroma_tpu_torch.pmt's public functions, with every surface model and
+    bulk reemission:
 
       * photocathode: the thin-film complex model, detect = the R7081HQE
         QE (demo/data/r7081hqe_detect.csv), a bialkali (K2CsSb) film of
@@ -292,17 +383,17 @@ def quick_optics_detector():
         is the component's (chroma_tpu/ops/photon.py:515-517): the
         reemission probability, 0.25, sets the share of a 400 nm bomb that
         reemits to a few percent."""
-    from chroma_tpu import demo
-    from chroma_tpu.demo import optics
-    from chroma_tpu.detector import Detector
-    from chroma_tpu.geometry import (Material, Solid, Surface, DichroicProps,
-                                     AngularProps, SURFACE_COMPLEX,
-                                     SURFACE_WLS, SURFACE_DICHROIC,
-                                     SURFACE_ANGULAR, standard_wavelengths,
-                                     standard_times)
-    from chroma_tpu.make import sphere
-    from chroma_tpu.pmt import build_pmt, build_light_collector_from_file
-    from chroma_tpu.transform import make_rotation_matrix, normalize
+    from chroma_tpu_torch import demo
+    from chroma_tpu_torch.demo import optics
+    from chroma_tpu_torch.detector import Detector
+    from chroma_tpu_torch.geometry import (
+        Material, Solid, Surface, DichroicProps, AngularProps,
+        SURFACE_COMPLEX, SURFACE_WLS, SURFACE_DICHROIC, SURFACE_ANGULAR,
+        standard_wavelengths, standard_times)
+    from chroma_tpu_torch.make import sphere
+    from chroma_tpu_torch.pmt import (build_pmt,
+                                      build_light_collector_from_file)
+    from chroma_tpu_torch.transform import make_rotation_matrix, normalize
     data = os.path.join(os.path.dirname(demo.__file__), 'data')
     wl = standard_wavelengths
 
@@ -378,9 +469,9 @@ def lartpc_geometry():
     anode planes (U/V/Y: wires at 0 and +-60 degrees) 3 mm apart at
     z = 0, 3, 6 mm: 3 mm pitch, 0.15 mm radius, 1 m x 1 m, the geometry of
     tests/test_wireplane.py:15-37 with the layout of running LArTPCs."""
-    from chroma_tpu.geometry import (Geometry, Material, Solid, Surface,
-                                     WirePlane, vacuum)
-    from chroma_tpu.make import box
+    from chroma_tpu_torch.geometry import (Geometry, Material, Solid,
+                                           Surface, WirePlane, vacuum)
+    from chroma_tpu_torch.make import box
     lar = Material('lar')
     lar.set('refractive_index', 1.38)
     lar.set('absorption_length', 1e6)
@@ -405,26 +496,47 @@ def lartpc_geometry():
     return geo
 
 
+@contextlib.contextmanager
+def launch_rays():
+    """Within the block, the rays of each visit-kernel query made through
+    visit_kernel.traverse, in a Counter (rays -> queries)."""
+    from chroma_tpu_torch.ops import visit_kernel
+    sizes = collections.Counter()
+    traverse = visit_kernel.traverse
+
+    def counted(inst, origin, *args, **kwargs):
+        sizes[int(origin.shape[0])] += 1
+        return traverse(inst, origin, *args, **kwargs)
+    visit_kernel.traverse = counted
+    try:
+        yield sizes
+    finally:
+        visit_kernel.traverse = traverse
+
+
 def run_main_path(sim, n, seed, pos=(0, 0, 0), run_daq=True):
     """A bomb of n 400 nm photons from `pos` through sim.simulate, with
-    the visit kernel's launches counted from 0: returns (event, wall s,
-    NaN aborts, launches)."""
+    the visit kernel's launches counted from 0 and the rays of each query
+    logged: returns (event, wall s, NaN aborts, launches)."""
     from chroma_tpu_torch.ops import visit_kernel
     import torch
-    from chroma_tpu.generator import photon_bomb
-    from chroma_tpu import event
+    from chroma_tpu_torch.generator import photon_bomb
+    from chroma_tpu_torch import event
     np.random.seed(seed)
     bomb = photon_bomb(n, 400.0, pos)
     if sim.device.type == 'cuda':
         torch.cuda.synchronize()
     visit_kernel.launches = 0
-    t0 = time.perf_counter()
-    ev = next(sim.simulate([bomb], run_daq=run_daq, max_steps=100,
-                           keep_photons_end=True))
-    if sim.device.type == 'cuda':
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with launch_rays() as sizes:
+        t0 = time.perf_counter()
+        ev = next(sim.simulate([bomb], run_daq=run_daq, max_steps=100,
+                               keep_photons_end=True))
+        if sim.device.type == 'cuda':
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = visit_kernel.launches
+    log('  visit-kernel queries by rays: %s' % ', '.join(
+        '%d x %d' % (k, sizes[k]) for k in sorted(sizes, reverse=True)))
     aborts = int(((ev.photons_end.flags & event.NAN_ABORT) != 0).sum())
     return ev, wall, aborts, launches
 
@@ -482,7 +594,7 @@ def phase_lartpc(device, card):
     "Phase 7: analytic wire planes."
     import torch
     import chroma_tpu_torch
-    from chroma_tpu import event
+    from chroma_tpu_torch import event
     from chroma_tpu_torch.ops.types import build_geometry_arrays
     from chroma_tpu_torch.ops.wireplane import (candidate_windows,
                                                 intersect_wireplanes)
@@ -513,7 +625,7 @@ def phase_lartpc(device, card):
     sim = chroma_tpu_torch.Simulation(geo, seed=0, device='cuda',
                                       geometry_arrays=ga)
     np.random.seed(11)
-    from chroma_tpu.generator import photon_bomb
+    from chroma_tpu_torch.generator import photon_bomb
     bomb = photon_bomb(N_BOMB, 400.0, source)
     g = sim.gpu_geometry
     windows = candidate_windows(
@@ -556,8 +668,8 @@ def hit_channels_per_readout(sim, events, nreps, ndaq, trange):
 
 def likelihood_gun(seed):
     "Events of a GUN_MEV electron at the centre heading +z, seeded."
-    from chroma_tpu.generator import (constant_particle_gun,
-                                      vertex_gun_to_events)
+    from chroma_tpu_torch.generator import (constant_particle_gun,
+                                            vertex_gun_to_events)
     np.random.seed(seed)
     return vertex_gun_to_events(constant_particle_gun(
         'e-', (0.0, 0.0, 0.0), (0.0, 0.0, 1.0), GUN_MEV))
@@ -567,7 +679,7 @@ def phase_likelihood(geo, ga, sim, card):
     "Phase 8: the hybrid-MC likelihood path on the quick-optics detector."
     import torch
     import chroma_tpu_torch
-    from chroma_tpu.likelihood import Likelihood
+    from chroma_tpu_torch.likelihood import Likelihood
     from chroma_tpu_torch.ops import visit_kernel
 
     obs = next(sim.simulate(itertools.islice(likelihood_gun(12), 1),
@@ -627,6 +739,89 @@ def phase_likelihood(geo, ga, sim, card):
     return launches, lk
 
 
+def phase_k1_times(tables, device, card):
+    """Phase 4: K1 at N_TIME and N_SMALL rays from the centre of the quick
+    detector (a bomb's first query). On the main path's table (bf16): the
+    warp-cooperative walk as traverse launches it, the first design and
+    the plain version, timed in turns; both designs equal the plain
+    version's outputs; the visits by node kind and the rows visited give
+    the bound. Then traverse's two launch choices, lanes a ray and
+    schedule, at the SWEEP ray counts (bf16) and at N_TIME (f32, fanout
+    16). Returns ({n: times}, max |diff| against the plain version)."""
+    import torch
+    from chroma_tpu_torch.ops import mesh_wide, visit_kernel
+    rs = np.random.RandomState(4)
+    d = rs.randn(N_TIME, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o_all = torch.zeros((N_TIME, 3), dtype=torch.float32, device=device)
+    d_all = torch.from_numpy(d.astype(np.float32)).to(device)
+    table = tables['bf16']
+    out, err = {}, 0.0
+    for n in (N_TIME, N_SMALL):
+        o, dn = o_all[:n], d_all[:n]
+        seen = torch.zeros(table.rows.shape[0], dtype=torch.bool,
+                           device=device)
+        ref = [x.cpu().numpy() for x in mesh_wide.traverse(
+            table, o, dn, by_kind=True, seen=seen)]
+        by_kind = ref[5]
+        ref[5] = by_kind.sum(axis=1)
+        walk = [x.cpu().numpy() for x in visit_kernel.traverse(
+            table, o, dn, by_kind=True)]
+        np.testing.assert_array_equal(walk[5], by_kind,
+                                      err_msg='walk visits by kind')
+        walk[5] = walk[5].sum(axis=1)
+        first = [x.cpu().numpy()
+                 for x in visit_kernel.traverse_thread(table, o, dn)]
+        err = max(err, assert_same('walk %d' % n, walk, ref),
+                  assert_same('first design %d' % n, first, ref))
+        kinds = by_kind.sum(axis=0).tolist()
+        rows_seen = int(seen.sum())
+        bound, by, ops, nbytes = k1_bound(table, n, kinds, rows_seen)
+        med, runs = time_turns({
+            'walk': lambda o=o, dn=dn: visit_kernel.traverse(table, o, dn),
+            'first': lambda o=o, dn=dn: visit_kernel.traverse_thread(
+                table, o, dn),
+            'plain': lambda o=o, dn=dn: mesh_wide.traverse(table, o, dn)})
+        out[n] = dict(ms=med['walk'], thread_ms=med['first'],
+                      plain_ms=med['plain'], bound_ms=bound, bound_by=by)
+        log('phase 4: K1, %d rays from the centre, quick/bf16, %s:' % (
+            n, card))
+        log('  walk and first design equal the plain version; visits %d: '
+            'internal %d, leaf %d, instance %d (%.2f a ray, %.1f%% hit) to '
+            '%d of %d rows; %.4g f32 operations, %.4g bytes: bound %.4f ms '
+            'by %s' % (sum(kinds), *kinds, sum(kinds) / n,
+                       100.0 * (ref[0] >= 0).mean(), rows_seen,
+                       table.rows.shape[0], ops, nbytes, bound, by))
+        for name, label in (('walk', 'warp-cooperative walk'),
+                            ('first', 'first design (one thread a ray)'),
+                            ('plain', 'plain version')):
+            log('  %-32s %9.4f ms (runs %s), %.2f%% of the bound' % (
+                label, med[name], ' '.join('%.4f' % x for x in runs[name]),
+                100.0 * bound / med[name]))
+
+    log('phase 4: traverse\'s launch choices, rays from the centre of the '
+        'quick detector, %s (ms, median of runs in turns; traverse: %d '
+        'lanes where the table fits, persistent from %d rays)' % (
+            card, visit_kernel.GROUP, visit_kernel.PERSISTENT_MIN_RAYS))
+    for fmt, sizes in (('bf16', SWEEP), ('f32', (N_TIME,))):
+        table = tables[fmt]
+        for n in sizes:
+            o, dn = o_all[:n], d_all[:n]
+            fns = {}
+            for group in (16, 32):
+                for persistent in (False, True):
+                    fns['%d lanes %s' % (
+                        group, 'persistent' if persistent else 'grid')] = \
+                        lambda o=o, dn=dn, g=group, p=persistent: \
+                        visit_kernel.launch(table, o, dn, group=g,
+                                            persistent=p)
+            med, _ = time_turns(fns)
+            log('  %s (fanout %d) %7d rays: %s' % (
+                fmt, table.fanout, n, '; '.join(
+                    '%s %.4f' % kv for kv in med.items())))
+    return out, err
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -648,53 +843,53 @@ def main(argv):
         torch.__version__, torch.version.cuda,
         torch.cuda.get_device_name(0), torch.cuda.device_count()))
 
-    # --- 1. build
+    # --- 1. build, all at once
+    from chroma_tpu_torch import native
     t0 = time.perf_counter()
-    visit_kernel.build()
-    log('phase 1: built %s in %.1f s' % (
-        os.path.relpath(visit_kernel.SOURCE), time.perf_counter() - t0))
-    for line in visit_kernel.build_log.splitlines():
-        if 'registers' in line or 'spill' in line:
-            log('  ptxas:', line.strip())
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(visit_kernel.build),
+                pool.submit(native.available)]
+        _, kit = [job.result() for job in jobs]
+    log('phase 1: built %s and %s (%s) in %.1f s' % (
+        os.path.relpath(visit_kernel.SOURCE),
+        os.path.relpath(native.SOURCE),
+        'loaded' if kit else 'unavailable: numpy paths',
+        time.perf_counter() - t0))
+    assert kit, 'the host geometry kit did not build'
+    log('  ptxas: %s' % ptxas_summary(visit_kernel.build_log))
 
     # --- 2. kernel vs plain on the card
     log('phase 2: visit kernel vs plain traversal on the card')
+    # one ray set under the persistent schedule's threshold, one at it
+    sizes = (N_SMALL, visit_kernel.PERSISTENT_MIN_RAYS)
     max_err = 0.0
-    for fmt in ('f32', 'bf16', 'q8'):
-        table = fixture_table(fmt).to(device)
-        max_err = max(max_err, compare_kernel(
-            'fixture/' + fmt, table, ray_mix(N_CHECK, 1, None, device)))
-    _, tiny = detector_arrays((2000.0, 2500.0, 700.0))
-    max_err = max(max_err, compare_kernel(
-        'tiny/bf16', tiny.wide.to(device),
-        ray_mix(N_CHECK, 2, 1800.0, device)))
+    for fmt in FORMATS:
+        for n in sizes:
+            max_err = max(max_err, compare_kernel(
+                'fixture/' + fmt, fixture_table(fmt).to(device),
+                ray_mix(n, 1, None, device)))
+    tiny_geo, tiny = detector_arrays((2000.0, 2500.0, 700.0))
     quick_geo, quick = detector_arrays(QUICK)
-    quick_wide = quick.wide.to(device)
-    max_err = max(max_err, compare_kernel(
-        'quick/bf16', quick_wide, ray_mix(N_CHECK, 3, 3600.0, device)))
+    quick_tables = detector_tables(quick_geo, quick, device)
+    for name, tables, seed, radius in (
+            ('tiny', detector_tables(tiny_geo, tiny, device), 2, 1800.0),
+            ('quick', quick_tables, 3, 3600.0)):
+        for fmt, table in tables.items():
+            for n in sizes:
+                max_err = max(max_err, compare_kernel(
+                    '%s/%s' % (name, fmt), table,
+                    ray_mix(n, seed, radius, device)))
 
     # --- 3. propagation steps, card against CPU
     log('phase 3: propagate_step on the card (kernel) vs the CPU (plain)')
     compare_steps(quick, device, N_CHECK, 3)
 
-    # --- 4. times at 2^20 rays: the first step's query of the bomb
-    rs = np.random.RandomState(4)
-    d = rs.randn(N_TIME, 3)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    o_t = torch.zeros((N_TIME, 3), dtype=torch.float32, device=device)
-    d_t = torch.from_numpy(d.astype(np.float32)).to(device)
-    ms, k_all = time_cuda(lambda: visit_kernel.traverse(quick_wide, o_t,
-                                                        d_t))
-    plain_ms, p_all = time_cuda(lambda: mesh_wide.traverse(quick_wide, o_t,
-                                                           d_t))
-    visits = visit_kernel.traverse(quick_wide, o_t, d_t)[5].float()
-    log('phase 4: %d rays from the centre, quick detector, %s: kernel '
-        '%.3f ms (runs %s), plain %.3f ms (runs %s), mean visits %.2f; '
-        '%.1f Mrays/s' % (N_TIME, card, ms, ['%.3f' % x for x in k_all],
-                          plain_ms, ['%.3f' % x for x in p_all],
-                          float(visits.mean()), N_TIME / ms / 1e3))
+    # --- 4. K1's designs: rays of a bomb's first query from the centre
+    k1, err = phase_k1_times(quick_tables, device, card)
+    max_err = max(max_err, err)
 
     # --- 5. the main path
+    thread_launches = visit_kernel.thread_launches
     log('phase 5: Simulation(quick detector, device=cuda), %d photons, '
         'run_daq=True' % N_BOMB)
     sim = chroma_tpu_torch.Simulation(quick_geo, seed=0, device='cuda',
@@ -745,16 +940,32 @@ def main(argv):
     per_phase = {'5 quick': launches, '6 quick-optics': launches6,
                  '7 lartpc-wires': launches7, '8 likelihood': launches8}
     log('visit-kernel launches per main path: %s' % json.dumps(per_phase))
+    assert visit_kernel.thread_launches == thread_launches, \
+        'a main path launched the first design'
 
+    big, small = k1[N_TIME], k1[N_SMALL]
     log(json.dumps({'kernels': [{
         'name': 'visit_inst',
         'route': 'cuda',
         'source': 'chroma_tpu_torch/csrc/visit_kernel.cu',
         'replaces': 'chroma_tpu/ops/visit_kernel.py:109',
         'launches': sum(per_phase.values()),
+        'launches_per_path': per_phase,
         'max_abs_err': max_err,
-        'ms': ms,
-        'plain_ms': plain_ms,
+        'rays': N_TIME,
+        'ms': big['ms'],
+        'plain_ms': big['plain_ms'],
+        'bound_ms': big['bound_ms'],
+        'bound_by': big['bound_by'],
+        'bound_share': big['bound_ms'] / big['ms'],
+        'library_ms': None,
+        'thread_ms': big['thread_ms'],
+        'rays_small': N_SMALL,
+        'ms_small': small['ms'],
+        'plain_ms_small': small['plain_ms'],
+        'bound_ms_small': small['bound_ms'],
+        'bound_share_small': small['bound_ms'] / small['ms'],
+        'thread_ms_small': small['thread_ms'],
     }]}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -785,7 +996,7 @@ def profile_run(label, fn, card, path):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in events) / 1e6
     visit = sum(e.self_device_time_total for e in events
-                if 'visit_inst_kernel' in e.key) / 1e6
+                if 'visit_warp_kernel' in e.key) / 1e6
     cpu_ops = sum(e.count for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CPU
                   and e.key.startswith('aten::'))

@@ -1,9 +1,10 @@
 """Instanced (TLAS/BLAS) wide BVH builder, host numpy, for the torch port.
 
-A jax-free copy of the instanced-table builder in chroma_tpu.bvh.wide (that
-module imports jax at its top, so the port cannot import it on a machine
-without JAX). The table it builds is bit-for-bit the JAX builder's; only
-the container differs: `InstancedBVH.rows` is a torch tensor.
+A jax-free copy of the instanced-table builder in chroma_tpu.bvh.wide, on
+the port's own host modules (Morton codes from chroma_tpu_torch.bvh.build,
+the native kit from chroma_tpu_torch.native). The table it builds is
+bit-for-bit the JAX builder's; only the container differs:
+`InstancedBVH.rows` is a torch tensor.
 
 Row layout (v4; see chroma_tpu.bvh.wide.InstancedBVH), width W =
 pad8(max(INST_B0 + bounds + 1, 11K, 15) + 1):
@@ -23,8 +24,8 @@ import sys
 import numpy as np
 import torch
 
-from chroma_tpu.bvh.build import morton_codes_3d
-from chroma_tpu.log import logger
+from chroma_tpu_torch.bvh.build import morton_codes_3d
+from chroma_tpu_torch.log import logger
 
 # default shape knobs, the same environment overrides as chroma_tpu
 FANOUT = int(os.environ.get('CHROMA_BVH_FANOUT', '16'))
@@ -199,7 +200,7 @@ def _morton_wide_rows(mesh, fanout, leaf_size, material_codes):
     world_origin = vertices.min(axis=0)
     world_scale = max(float((vertices.max(axis=0) - world_origin).max())
                       / (2 ** 16 - 2), 1e-12)
-    from chroma_tpu import native
+    from chroma_tpu_torch import native
     codes = native.morton_codes(tri, world_origin, world_scale) \
         if ntri > 100000 else None
     if codes is None:
@@ -405,7 +406,7 @@ def _binary_sah_build(lo, hi, max_leaf, nbins=16, sweep=None):
 def _collapse_tables(left, right, area, fanout):
     """Optimal BVH2 -> wide collapse DP tables (native kit when available,
     numpy otherwise). Returns (forcost (n, F+1) f64, jch (n, F+1) u8)."""
-    from chroma_tpu import native
+    from chroma_tpu_torch import native
     out = native.collapse_dp(left, right, area, fanout)
     if out is not None:
         return out
@@ -757,7 +758,7 @@ def build_instanced_bvh(instances, fanout=None, leaf_size=LEAF_SIZE,
             else np.asarray(disp, np.float32)
         rigid = np.allclose(rot @ rot.T, ident, atol=1e-4)
         if not rigid:
-            from chroma_tpu.geometry import Mesh
+            from chroma_tpu_torch.geometry import Mesh
             mesh = Mesh(np.inner(mesh.vertices, rot) + disp,
                         mesh.triangles, remove_duplicate_vertices=False,
                         remove_null_triangles=False)

@@ -13,8 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from chroma_tpu import event
-from chroma_tpu.event import SURFACE_DETECT
+from chroma_tpu_torch import event
+from chroma_tpu_torch.event import SURFACE_DETECT
 from chroma_tpu_torch.ops.photon import i32
 from chroma_tpu_torch.ops.sample import sample_cdf_pairs, uniform
 

@@ -168,7 +168,7 @@ def _leaf_sweep(g, gi, k, org, dirn, last_hit, active, tbase, iid, best):
 
 
 def traverse(inst, origin, direction, last_hit=None, mask=None,
-             best_limit=None):
+             best_limit=None, by_kind=False, seen=None):
     """Run the instanced traversal to completion on any device.
 
     origin/direction: (N, 3) f32 world rays; last_hit: (N,) i32 excluded
@@ -176,7 +176,10 @@ def traverse(inst, origin, direction, last_hit=None, mask=None,
     bound on the hit distance. Returns (tri (N,) i32 -1 = miss, dist (N,)
     f32 (+inf or best_limit on a miss), code (N,) i32 packed material code
     (u32 bits), normal (N, 3) unnormalised in the winning instance's local
-    frame, iid (N,) i32 owning instance, visits (N,) i32)."""
+    frame, iid (N,) i32 owning instance, visits (N,) i32). With by_kind,
+    visits is (N, 3): the visits of internal, leaf and instance rows (the
+    row tags 0, 1, 2). `seen`, a (rows,) bool tensor, gets True at every
+    row the walk visits."""
     dev = origin.device
     n = origin.shape[0]
     rows = inst.rows
@@ -208,25 +211,30 @@ def traverse(inst, origin, direction, last_hit=None, mask=None,
     b_code = torch.zeros(n, **i32)
     b_n = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     b_iid = torch.zeros(n, **i32)
-    visits = torch.zeros(n, **i32)
+    visits = torch.zeros((n, 3) if by_kind else n, **i32)
     slots = torch.arange(d_max, **i32)[None, :]
 
     while True:
         a = torch.nonzero(cur >= 0)[:, 0]
         if a.numel() == 0:
             break
-        visits[a] += 1
         c_a, dep_a = cur[a], depth[a]
         st_b, st_m = bases[a], masks[a]
         w_a, loc_a = world[a], loc[a]
         di_a, tb_a, id_a = d_inst[a], tbase[a], iid[a]
 
         g = rows[c_a.to(torch.int64)]
+        if seen is not None:
+            seen[c_a.to(torch.int64)] = True
         gi = g.view(torch.int32)
         tag = gi[:, width - 1]
         internal = tag == TAG_INTERNAL
         at_leaf = tag == TAG_LEAF
         is_inst = tag == TAG_INSTANCE
+        if by_kind:
+            visits[a, tag.to(torch.int64)] += 1
+        else:
+            visits[a] += 1
 
         # instance entry: rotate the world ray into the instance frame;
         # the instance row embeds its BLAS root's child bounds, so entry

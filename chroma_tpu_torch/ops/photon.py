@@ -22,12 +22,12 @@ import os
 
 import torch
 
-from chroma_tpu.event import (NO_HIT, BULK_ABSORB, SURFACE_DETECT,
+from chroma_tpu_torch.event import (NO_HIT, BULK_ABSORB, SURFACE_DETECT,
                               SURFACE_ABSORB, RAYLEIGH_SCATTER,
                               REFLECT_DIFFUSE, REFLECT_SPECULAR,
                               SURFACE_REEMIT, SURFACE_TRANSMIT, BULK_REEMIT,
                               NAN_ABORT, TERMINAL_FLAGS)
-from chroma_tpu.geometry import (SURFACE_DEFAULT, SURFACE_COMPLEX,
+from chroma_tpu_torch.geometry import (SURFACE_DEFAULT, SURFACE_COMPLEX,
                                  SURFACE_WLS, SURFACE_DICHROIC,
                                  SURFACE_ANGULAR)
 from chroma_tpu_torch.ops import visit_kernel

@@ -19,8 +19,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from chroma_tpu import event
-from chroma_tpu.log import logger
+from chroma_tpu_torch import event
+from chroma_tpu_torch.log import logger
 from chroma_tpu_torch.ops.photon import PhotonState, i32, propagate_step
 from chroma_tpu_torch.ops.sample import DrawPool, make_generator
 

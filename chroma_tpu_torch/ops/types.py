@@ -23,7 +23,7 @@ import os
 import numpy as np
 import torch
 
-from chroma_tpu.geometry import standard_wavelengths, standard_times
+from chroma_tpu_torch.geometry import standard_wavelengths, standard_times
 from chroma_tpu_torch.bvh.wide import build_instanced_bvh, InstancedBVH
 
 MAT_REFRACTIVE_INDEX = 0

@@ -3,8 +3,9 @@ chroma_tpu.sim.Simulation).
 
 Owns the device geometry, batches incoming events to photons_per_batch,
 propagates each batch, extracts flat hits with channels and runs the DAQ,
-and yields the shared chroma_tpu.event.Event objects. It also serves the
-PDF API that chroma_tpu.likelihood.Likelihood drives (create_pdf,
+and yields the port's own chroma_tpu_torch.event.Event objects. It also
+serves the PDF API that chroma_tpu_torch.likelihood.Likelihood drives
+(create_pdf,
 eval_pdf, setup_kernel, eval_kernel). Every random stream comes from a
 torch.Generator seeded from (seed, propagation counter, ...): each
 simulate batch and each PDF-path propagation takes the next count.
@@ -17,9 +18,9 @@ import time
 import numpy as np
 import torch
 
-from chroma_tpu import event, itertoolset
-from chroma_tpu.detector import Detector
-from chroma_tpu.geometry import Geometry, Mesh, Solid, vacuum
+from chroma_tpu_torch import event, itertoolset
+from chroma_tpu_torch.detector import Detector
+from chroma_tpu_torch.geometry import Geometry, Mesh, Solid, vacuum
 from chroma_tpu_torch.ops import daq as daq_ops
 from chroma_tpu_torch.ops import pdf as pdf_ops
 from chroma_tpu_torch.ops.photon import PhotonState
@@ -40,8 +41,9 @@ def pick_seed():
 
 def _as_geometry(obj):
     """A flattened Geometry from a Detector/Geometry/Solid/Mesh or a
-    callable returning one (chroma_tpu.loader.create_geometry_from_obj
-    without the classic BVH, which the port does not use)."""
+    callable returning one, from the port's own host modules
+    (chroma_tpu.loader.create_geometry_from_obj without the classic BVH,
+    which the port does not use)."""
     if callable(obj):
         obj = obj()
     if isinstance(obj, (Detector, Geometry)):
@@ -109,7 +111,7 @@ class Simulation:
         if isinstance(first_element, event.Photons):
             iterable = (event.Event(photons_beg=x) for x in iterable)
         elif isinstance(first_element, event.Vertex):
-            from chroma_tpu.generator import vertex_gun_to_events
+            from chroma_tpu_torch.generator import vertex_gun_to_events
             iterable = vertex_gun_to_events(iterable)
 
         opts = dict(keep_photons_beg=keep_photons_beg,
@@ -182,7 +184,7 @@ class Simulation:
             yield ev
 
     # ------------------------------------------------------------------
-    # PDF evaluation API (used by chroma_tpu.likelihood)
+    # PDF evaluation API (used by chroma_tpu_torch.likelihood)
     # ------------------------------------------------------------------
 
     def create_pdf(self, iterable, tbins, trange, qbins, qrange,

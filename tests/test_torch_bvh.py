@@ -1,19 +1,19 @@
 """The torch port's host builders against the JAX package's.
 
 The port copies the instanced-table builder and the geometry-array
-builders (the JAX modules import jax at their top), so their output must
-be bit-for-bit the JAX output: the instanced rows in every bounds format,
-and every GeometryArrays field, directly and through from_jax_arrays."""
+builders (the JAX modules import jax at their top), and the host modules
+they read (geometry, make, demo, native), so their output must be
+bit-for-bit the JAX output: the instanced rows in every bounds format, and
+every GeometryArrays field, directly and through from_jax_arrays. Each
+side builds the geometry from its own package, with the same function and
+arguments."""
 import dataclasses
+from importlib import import_module
 
 import numpy as np
 import pytest
 import torch
 
-from chroma_tpu import demo
-from chroma_tpu.geometry import Geometry, Solid
-from chroma_tpu.demo.optics import water, glass
-from chroma_tpu.make import box, sphere
 from chroma_tpu.bvh import wide as jwide
 from chroma_tpu.ops import types as jtypes
 from chroma_tpu_torch.bvh import wide as twide
@@ -51,31 +51,44 @@ def _assert_struct(jax_struct, torch_struct, prefix):
             assert tv == jv, name
 
 
-@pytest.fixture(scope='module')
-def fixture_instances():
-    geo = Geometry(water)
-    geo.add_solid(Solid(box(100.0, 80.0, 60.0), glass, water))
-    geo.add_solid(Solid(sphere(30.0, nsteps=24), glass, water),
+def _fixture_instances(pkg, types):
+    "The visit-kernel fixture geometry by package `pkg`, as instances."
+    geometry = import_module(pkg + '.geometry')
+    optics = import_module(pkg + '.demo.optics')
+    make = import_module(pkg + '.make')
+    water, glass = optics.water, optics.glass
+    geo = geometry.Geometry(water)
+    geo.add_solid(geometry.Solid(make.box(100.0, 80.0, 60.0), glass, water))
+    geo.add_solid(geometry.Solid(make.sphere(30.0, nsteps=24), glass, water),
                   displacement=(120.0, 0.0, 0.0))
-    geo.add_solid(Solid(box(40.0, 40.0, 40.0), glass, water),
+    geo.add_solid(geometry.Solid(make.box(40.0, 40.0, 40.0), glass, water),
                   displacement=(-120.0, 30.0, 0.0))
     geo.flatten()
-    codes = jtypes.pack_material_codes(geo.material1_index,
-                                       geo.material2_index,
-                                       geo.surface_index)
+    codes = types.pack_material_codes(geo.material1_index,
+                                      geo.material2_index,
+                                      geo.surface_index)
     tri_base = np.cumsum([0] + [len(s.mesh.triangles) for s in geo.solids])
     return [(s.mesh, geo.solid_rotations[i], geo.solid_displacements[i],
              int(tri_base[i])) for i, s in enumerate(geo.solids)], codes
 
 
+@pytest.fixture(scope='module')
+def fixture_instances():
+    "(JAX-built, port-built) instances and codes of the same geometry."
+    return (_fixture_instances('chroma_tpu', jtypes),
+            _fixture_instances('chroma_tpu_torch', ttypes))
+
+
 @pytest.mark.parametrize('fmt', ['f32', 'bf16', 'q8'])
 def test_instanced_rows_bitwise(fixture_instances, fmt):
-    instances, codes = fixture_instances
+    (j_inst, j_codes), (t_inst, t_codes) = fixture_instances
+    _assert_bitwise(j_codes, torch.from_numpy(t_codes.view(np.int32)),
+                    'codes')
     pf, bf = FORMATS[fmt]
-    jw, jmeta = jwide.build_instanced_bvh(instances, material_codes=codes,
+    jw, jmeta = jwide.build_instanced_bvh(j_inst, material_codes=j_codes,
                                           packed_fanout=pf, bounds_fmt=bf,
                                           want_meta=True)
-    tw, tmeta = twide.build_instanced_bvh(instances, material_codes=codes,
+    tw, tmeta = twide.build_instanced_bvh(t_inst, material_codes=t_codes,
                                           packed_fanout=pf, bounds_fmt=bf,
                                           want_meta=True)
     _assert_bitwise(jw.rows, tw.rows, 'rows')
@@ -91,22 +104,31 @@ def test_instanced_rows_bitwise(fixture_instances, fmt):
 
 def test_flattened_mesh_is_one_identity_instance():
     "A geometry with no live solids builds one instance over its soup."
-    geo = Geometry(water)
-    geo.add_solid(Solid(sphere(50.0, nsteps=16), glass, water))
-    geo.flatten()
-    geo.solids = []
-    ga_j = jtypes.build_geometry_arrays(geo)
-    ga_t = ttypes.build_geometry_arrays(geo)
+    def soup(pkg):
+        geometry = import_module(pkg + '.geometry')
+        optics = import_module(pkg + '.demo.optics')
+        make = import_module(pkg + '.make')
+        geo = geometry.Geometry(optics.water)
+        geo.add_solid(geometry.Solid(make.sphere(50.0, nsteps=16),
+                                     optics.glass, optics.water))
+        geo.flatten()
+        geo.solids = []
+        return geo
+    ga_j = jtypes.build_geometry_arrays(soup('chroma_tpu'))
+    ga_t = ttypes.build_geometry_arrays(soup('chroma_tpu_torch'))
     assert ga_t.inst is None and ga_t.wide.n_instances == 1
     _assert_bitwise(ga_j.wide.rows, ga_t.wide.rows, 'rows')
 
 
 @pytest.fixture(scope='module')
 def tiny_arrays():
-    geo = demo.tiny()
-    geo.flatten()
-    return jtypes.build_geometry_arrays(geo), \
-        ttypes.build_geometry_arrays(geo)
+    "demo.tiny() built and marshalled by each package."
+    out = []
+    for pkg, types in (('chroma_tpu', jtypes), ('chroma_tpu_torch', ttypes)):
+        geo = import_module(pkg + '.demo').tiny()
+        geo.flatten()
+        out.append(types.build_geometry_arrays(geo))
+    return tuple(out)
 
 
 def test_tiny_geometry_arrays_bitwise(tiny_arrays):

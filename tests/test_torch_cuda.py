@@ -1,18 +1,19 @@
 """CUDA kernels of the torch port against their plain PyTorch versions.
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without one:
-a CUDA kernel has no CPU mode. The file imports no JAX, so it runs on a
-machine that has only the port's dependencies:
+a CUDA kernel has no CPU mode. The file imports neither JAX nor
+chroma_tpu, so it runs on a machine that has only the port's dependencies
+(--noconftest: tests/conftest.py sets up JAX for the other files):
 
-    python -m pytest tests/test_torch_cuda.py -m cuda
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
 import numpy as np
 import pytest
 import torch
 
-from chroma_tpu.geometry import Geometry, Solid
-from chroma_tpu.demo.optics import water, glass
-from chroma_tpu.make import box, sphere
+from chroma_tpu_torch.geometry import Geometry, Solid
+from chroma_tpu_torch.demo.optics import water, glass
+from chroma_tpu_torch.make import box, sphere
 from chroma_tpu_torch.bvh.wide import build_instanced_bvh
 from chroma_tpu_torch.ops import mesh_wide, visit_kernel
 from chroma_tpu_torch.ops.types import pack_material_codes
@@ -48,35 +49,28 @@ def _table(fmt):
                                packed_fanout=pf, bounds_fmt=bf)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('fmt', ['f32', 'bf16', 'q8'])
-def test_visit_kernel_matches_plain(cuda, fmt):
-    tw = _table(fmt).to(cuda)
-    n = 8192
-    rs = np.random.RandomState(7)
+def _rays(n, seed, masked, limited, device):
+    """n rays at the fixture from random points: a share `masked` of the
+    lanes masked out and a share `limited` with a distance limit; half of
+    the rest exclude their first hit."""
+    rs = np.random.RandomState(seed)
     o = rs.uniform(-200, 200, (n, 3)).astype(np.float32)
     d = (rs.uniform((-150, -50, -40), (150, 50, 40), (n, 3)) - o)
     d[:16, 1:] = 0.0
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    mask = rs.uniform(size=n) >= 0.1
-    limit = np.where(rs.uniform(size=n) < 0.25, rs.uniform(10, 300, n),
+    mask = rs.uniform(size=n) >= masked
+    limit = np.where(rs.uniform(size=n) < limited, rs.uniform(10, 300, n),
                      np.inf).astype(np.float32)
-    args = [torch.from_numpy(x).to(cuda) for x in (o, d)]
-    first = mesh_wide.traverse(tw, *args)[0]
-    last = torch.where(torch.from_numpy(rs.uniform(size=n) < 0.5).to(cuda),
-                       first, -1).to(torch.int32)
-    extra = (last, torch.from_numpy(mask).to(cuda),
-             torch.from_numpy(limit).to(cuda))
+    relast = rs.uniform(size=n) < 0.5
+    return ([torch.from_numpy(x).to(device) for x in (o, d)],
+            torch.from_numpy(mask).to(device),
+            torch.from_numpy(limit).to(device),
+            torch.from_numpy(relast).to(device))
 
-    ref = [x.cpu().numpy() for x in mesh_wide.traverse(tw, *args, *extra)]
-    before = visit_kernel.launches
-    got = [x.cpu().numpy()
-           for x in visit_kernel.traverse(tw, *args, *extra)]
-    torch.cuda.synchronize()
-    assert visit_kernel.launches == before + 1
 
+def _assert_same(got, ref, n_hit_min):
     tri, dist, code, normal, iid, visits = ref
-    assert (tri >= 0).sum() > n // 4
+    assert (tri >= 0).sum() >= n_hit_min
     for name, a, b in (('tri', got[0], tri), ('code', got[2], code),
                        ('iid', got[4], iid), ('visits', got[5], visits)):
         np.testing.assert_array_equal(a, b, err_msg=name)
@@ -87,9 +81,64 @@ def test_visit_kernel_matches_plain(cuda, fmt):
                                atol=1e-5 * np.abs(normal[hit]).max())
 
 
+def _query(tw, n, seed, masked, limited, device):
+    "(args with last_hit, mask and limit; the plain version's outputs)."
+    args, mask, limit, relast = _rays(n, seed, masked, limited, device)
+    first = mesh_wide.traverse(tw, *args)[0]
+    last = torch.where(relast, first, -1).to(torch.int32)
+    full = (*args, last, mask, limit)
+    return full, [x.cpu().numpy() for x in mesh_wide.traverse(tw, *full)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [8192, 10000])
+@pytest.mark.parametrize('fmt', ['f32', 'bf16', 'q8'])
+def test_visit_kernel_matches_plain(cuda, fmt, n):
+    tw = _table(fmt).to(cuda)
+    full, ref = _query(tw, n, 7, 0.1, 0.25, cuda)
+    before = visit_kernel.launches
+    got = [x.cpu().numpy() for x in visit_kernel.traverse(tw, *full)]
+    torch.cuda.synchronize()
+    assert visit_kernel.launches == before + 1
+    _assert_same(got, ref, n // 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('persistent', [False, True])
+@pytest.mark.parametrize('group', [16, 32])
+@pytest.mark.parametrize('fmt', ['f32', 'bf16', 'q8'])
+def test_visit_kernel_schedules_match_plain(cuda, fmt, group, persistent):
+    """Each launch of the walk -- a grid of one group per ray or persistent
+    groups taking rays from a counter, 16 or 32 lanes a ray (16 lanes give
+    each lane two children of a fanout-32 row) -- on a ray set
+    with many masked lanes (60%) and many distance limits (60%), where
+    groups finish at very different times. Visits by node kind too."""
+    tw = _table(fmt).to(cuda)
+    full, ref = _query(tw, 10000, 8, 0.6, 0.6, cuda)
+    got = [x.cpu().numpy() for x in visit_kernel.launch(
+        tw, *full, group=group, persistent=persistent)]
+    _assert_same(got, ref, 1000)
+    kinds = visit_kernel.launch(tw, *full, by_kind=True, group=group,
+                                persistent=persistent)[5].cpu().numpy()
+    np.testing.assert_array_equal(kinds, mesh_wide.traverse(
+        tw, *full, by_kind=True)[5].cpu().numpy())
+    np.testing.assert_array_equal(kinds.sum(axis=1), ref[5])
+
+
+@pytest.mark.cuda
+def test_thread_design_matches_plain(cuda):
+    "The one-thread-per-ray yardstick computes the same function."
+    tw = _table('bf16').to(cuda)
+    full, ref = _query(tw, 8192, 9, 0.1, 0.25, cuda)
+    got = [x.cpu().numpy() for x in visit_kernel.traverse_thread(tw, *full)]
+    _assert_same(got, ref, 2048)
+
+
 @pytest.mark.cuda
 def test_visit_kernel_rejects_bad_input(cuda):
     tw = _table('bf16').to(cuda)
     o = torch.zeros((4, 3), device=cuda)
     with pytest.raises(ValueError):
         visit_kernel.traverse(tw, o, o.double())
+    with pytest.raises(ValueError):     # no 8-lane groups
+        visit_kernel.launch(tw, o, o, group=8)

@@ -14,9 +14,10 @@ from chroma_tpu.ops import daq as jdaq
 from chroma_tpu.ops import types as jtypes
 from chroma_tpu.ops import propagate as jprop
 from chroma_tpu.ops.sample import make_key, site_key
+from chroma_tpu_torch import demo as tdemo, event as tevent
 from chroma_tpu_torch.ops import daq as tdaq
 from chroma_tpu_torch.ops import propagate as tprop
-from chroma_tpu_torch.ops.types import from_jax_arrays
+from chroma_tpu_torch.ops import types as ttypes
 
 torch.set_num_threads(2)
 
@@ -25,22 +26,26 @@ N = 20000
 
 @pytest.fixture(scope='module')
 def hits():
-    "Photons ending all over demo.tiny(), half of them flagged detected."
+    """Photons ending all over demo.tiny(), half of them flagged detected;
+    geometry and photons built by each package from the same arrays."""
     geo = demo.tiny()
     geo.flatten()
     ga = jtypes.build_geometry_arrays(geo)
+    tgeo = tdemo.tiny()
+    tgeo.flatten()
     rs = np.random.RandomState(8)
     ntri = len(geo.mesh.triangles)
     flags = rs.choice([0, 2, 4, 4 | 16, 4 | 32, 8, 4 | (1 << 31)], N)
-    photons = event.Photons(
+    fields = dict(
         pos=rs.randn(N, 3), dir=rs.randn(N, 3), pol=rs.randn(N, 3),
         wavelengths=np.full(N, 400.0), t=rs.uniform(0, 50, N),
         last_hit_triangles=np.where(rs.uniform(size=N) < 0.1, -1,
                                     rs.randint(0, ntri, N)),
         flags=flags.astype(np.uint32),
         weights=np.where(rs.uniform(size=N) < 0.2, 0.5, 1.0))
-    return (ga, from_jax_arrays(ga), jprop.photon_state_from_host(photons),
-            tprop.photon_state_from_host(photons, 'cpu'))
+    return (ga, ttypes.build_geometry_arrays(tgeo),
+            jprop.photon_state_from_host(event.Photons(**fields)),
+            tprop.photon_state_from_host(tevent.Photons(**fields), 'cpu'))
 
 
 def test_flat_hit_pack_bitwise(hits):
@@ -81,8 +86,8 @@ def test_run_daq_bitwise(hits, ndaq):
     assert ch.flags.dtype == np.uint32 and (ch.flags >> 31).any()
 
 
-@pytest.mark.parametrize('weight,state', [(0.6, event.SURFACE_DETECT),
-                                          (1.0, event.SURFACE_ABSORB)])
+@pytest.mark.parametrize('weight,state', [(0.6, tevent.SURFACE_DETECT),
+                                          (1.0, tevent.SURFACE_ABSORB)])
 def test_run_daq_weight_and_detection_state_bitwise(hits, weight, state):
     """global_weight scales every photon's keep probability, and
     detection_state picks the flag bit that counts as a detection (the

@@ -1,0 +1,72 @@
+"""The port stands on its own: no module of chroma_tpu_torch, and not
+chip_smoke.py, imports the JAX package chroma_tpu, jax, jaxlib or flax --
+at its top, inside a function or in a try block alike -- and the port
+reads its data files and sources from its own directory. Each file is
+parsed with ast, not imported, so this holds on any machine."""
+import ast
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, 'chroma_tpu_torch')
+FORBIDDEN = ('chroma_tpu', 'jax', 'jaxlib', 'flax')
+
+
+def _sources():
+    found = [os.path.join(REPO, 'chip_smoke.py')]
+    for root, _, files in os.walk(PORT):
+        found += [os.path.join(root, f) for f in sorted(files)
+                  if f.endswith('.py')]
+    return sorted(os.path.relpath(p, REPO) for p in found)
+
+
+def _imported(tree):
+    "(line, top-level package) of every import statement in the tree."
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split('.')[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split('.')[0]
+
+
+def test_scan_covers_the_port():
+    "The scan sees the host copies, the ops and the kernel wrapper."
+    sources = _sources()
+    for name in ('event.py', 'geometry.py', 'likelihood.py', 'native.py',
+                 os.path.join('demo', 'optics.py'),
+                 os.path.join('ops', 'visit_kernel.py'),
+                 os.path.join('bvh', 'build.py')):
+        assert os.path.join('chroma_tpu_torch', name) in sources, name
+
+
+@pytest.mark.parametrize('path', _sources())
+def test_no_jax_package_import(path):
+    with open(os.path.join(REPO, path)) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    bad = [(line, top) for line, top in _imported(tree) if top in FORBIDDEN]
+    assert not bad, '%s imports %s' % (path, bad)
+
+
+def test_scan_catches_a_jax_package_import():
+    "The scan itself finds imports nested in functions and try blocks."
+    tree = ast.parse('def f():\n    try:\n        from chroma_tpu.event '
+                     'import Photons\n    except ImportError:\n'
+                     '        import jax.numpy\n')
+    assert sorted(top for _, top in _imported(tree)) == ['chroma_tpu',
+                                                         'jax']
+
+
+def test_port_reads_its_own_files():
+    "Data, kernel and native sources resolve inside chroma_tpu_torch/."
+    from chroma_tpu_torch import native
+    from chroma_tpu_torch.demo import optics, pmt
+    from chroma_tpu_torch.ops import visit_kernel
+    for path in (optics._DATA, pmt._DATA, native.SOURCE,
+                 visit_kernel.SOURCE):
+        assert os.path.realpath(path).startswith(os.path.realpath(PORT)
+                                                 + os.sep), path
+        assert os.path.exists(path), path
+    assert sorted(os.listdir(optics._DATA)) == sorted(os.listdir(
+        os.path.join(REPO, 'chroma_tpu', 'demo', 'data')))

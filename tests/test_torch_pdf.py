@@ -10,17 +10,13 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from chroma_tpu import event
-from chroma_tpu.detector import Detector
-from chroma_tpu.generator import photon_bomb
-from chroma_tpu.geometry import Material, Solid, Surface, vacuum
-from chroma_tpu.likelihood import Likelihood
-from chroma_tpu.make import box
 from chroma_tpu.ops import daq as jdaq
 from chroma_tpu.ops import pdf as jpdf
 import chroma_tpu_torch
 from chroma_tpu_torch.ops import daq as tdaq
 from chroma_tpu_torch.ops import pdf as tpdf
+
+from test_torch_host import J, T, _box_detector
 
 torch.set_num_threads(2)
 
@@ -40,18 +36,19 @@ class _Geo:
 
 def _readouts(seed):
     """(ndaq * C,) earliest times (MAX_TIME where a channel is not hit),
-    charges, and the observed event's channels."""
+    charges, and the observed event's channels as (JAX, port) Channels."""
     rs = np.random.RandomState(seed)
     hit = rs.uniform(size=(NDAQ, C)) < 0.6
     t = np.where(hit, rs.normal(10.0, 3.0, (NDAQ, C)), jdaq.MAX_TIME)
     q = np.where(hit, rs.normal(1.0, 0.3, (NDAQ, C)), 0.0)
     obs_hit = rs.uniform(size=C) < 0.7
-    obs = event.Channels(hit=obs_hit,
-                         t=np.where(obs_hit, rs.normal(10.0, 3.0, C), 1e9)
-                         .astype(np.float32),
-                         q=rs.normal(1.0, 0.3, C).astype(np.float32))
+    fields = dict(hit=obs_hit,
+                  t=np.where(obs_hit, rs.normal(10.0, 3.0, C), 1e9)
+                  .astype(np.float32),
+                  q=rs.normal(1.0, 0.3, C).astype(np.float32))
     return (t.reshape(-1).astype(np.float32),
-            q.reshape(-1).astype(np.float32), obs)
+            q.reshape(-1).astype(np.float32),
+            (J.event.Channels(**fields), T.event.Channels(**fields)))
 
 
 def _both(t, q):
@@ -81,10 +78,10 @@ def test_accumulator_matches_jax():
 
 @pytest.mark.parametrize('min_bin_content', [4, 40])
 def test_pdf_eval_matches_jax(min_bin_content):
-    t0, q0, obs = _readouts(10)
+    t0, q0, (obs, t_obs) = _readouts(10)
     je = jpdf.PDFEval(_Geo(True), obs, 1.0, (-0.5, 30.0), 1, (0, 5),
                       min_bin_content=min_bin_content)
-    te = tpdf.PDFEval(_Geo(False), obs, 1.0, (-0.5, 30.0), 1, (0, 5),
+    te = tpdf.PDFEval(_Geo(False), t_obs, 1.0, (-0.5, 30.0), 1, (0, 5),
                       min_bin_content=min_bin_content)
     for seed in range(3):
         t, q, _ = _readouts(20 + seed)
@@ -102,7 +99,7 @@ def test_pdf_eval_matches_jax(min_bin_content):
 
 @pytest.mark.parametrize('time_only', [True, False])
 def test_kernel_pdf_matches_jax(time_only):
-    _, _, obs = _readouts(30)
+    _, _, (obs, _) = _readouts(30)
     jk = jpdf.KernelPDF(_Geo(True), (0.0, 25.0), (0.0, 3.0), time_only)
     tk = tpdf.KernelPDF(_Geo(False), (0.0, 25.0), (0.0, 3.0), time_only)
     for seed in range(2):
@@ -127,24 +124,14 @@ def test_kernel_pdf_matches_jax(time_only):
 @pytest.fixture(scope='module')
 def sim():
     "The tests/test_pdf.py box detector on the port (CPU)."
-    water = Material('water')
-    water.set('refractive_index', 1.33)
-    water.set('absorption_length', 1e5)
-    water.set('scattering_length', 1e5)
-    pc = Surface('pc')
-    pc.set('detect', 0.5)
-    pc.set('absorb', 0.5)
-    det = Detector(vacuum)
-    det.add_pmt(Solid(box(1000.0, 1000, 1000), water, vacuum, surface=pc))
-    det.set_time_dist_gaussian(1.2, -6.0, 6.0)
-    det.set_charge_dist_gaussian(1.0, 0.1, 0.5, 1.5)
-    return chroma_tpu_torch.Simulation(det, seed=11, device='cpu')
+    return chroma_tpu_torch.Simulation(_box_detector(T), seed=11,
+                                       device='cpu')
 
 
 def _events(n, nphotons=500):
     for _ in range(n):
-        yield event.Event(photons_beg=photon_bomb(nphotons, 400.0,
-                                                  (0, 0, 0)))
+        yield T.event.Event(photons_beg=T.photon_bomb(nphotons, 400.0,
+                                                      (0, 0, 0)))
 
 
 def test_create_pdf(sim):
@@ -159,21 +146,21 @@ def test_create_pdf(sim):
 
 def test_eval_pdf_and_likelihood(sim):
     np.random.seed(1)
-    obs = next(sim.simulate(photon_bomb(500, 400.0, (0, 0, 0)),
+    obs = next(sim.simulate(T.photon_bomb(500, 400.0, (0, 0, 0)),
                             run_daq=True, keep_photons_end=True))
     assert obs.channels.hit[0]
     hitcount, pdf_value, pdf_uncert = sim.eval_pdf(
         obs.channels, _events(6), 0.5, (-0.5, 20.0), 1, (-0.5, 7.5),
         nreps=1, ndaq=4, min_bin_content=10)
     assert hitcount[0] > 0 and pdf_value[0] > 0 and pdf_uncert[0] > 0
-    lk = Likelihood(sim, obs, trange=(-0.5, 20.0))
+    lk = T.Likelihood(sim, obs, trange=(-0.5, 20.0))
     nll = lk.eval(_events(50), nevals=6, nreps=1, ndaq=4)
     assert np.isfinite(nll.nominal_value) and np.isfinite(nll.s)
 
 
 def test_kernel_pdf(sim):
     np.random.seed(2)
-    obs = next(sim.simulate(photon_bomb(500, 400.0, (0, 0, 0)),
+    obs = next(sim.simulate(T.photon_bomb(500, 400.0, (0, 0, 0)),
                             run_daq=True))
     sim.setup_kernel(obs.channels, _events(4), (-10.0, 20.0), (-0.5, 49.5),
                      nreps=1, ndaq=4)
@@ -181,6 +168,6 @@ def test_kernel_pdf(sim):
                                               (-10.0, 20.0), (-0.5, 49.5),
                                               nreps=1, ndaq=4)
     assert hitcount[0] > 0 and pdf_values[0] > 0
-    lk = Likelihood(sim, obs, trange=(-10.0, 20.0))
+    lk = T.Likelihood(sim, obs, trange=(-10.0, 20.0))
     nll = lk.eval_kernel(_events(40), nevals=4, nreps=1, ndaq=4, navg=2)
     assert np.isfinite(nll.nominal_value)

@@ -13,15 +13,15 @@ import pytest
 import torch
 import jax
 
-from chroma_tpu import demo
-from chroma_tpu.generator import photon_bomb
 from chroma_tpu.ops import types as jtypes
 from chroma_tpu.ops import propagate as jprop
 from chroma_tpu.ops.photon import propagate_step as jax_step
 from chroma_tpu.ops.sample import make_key
 from chroma_tpu_torch.ops import photon
+from chroma_tpu_torch.ops import types as ttypes
 from chroma_tpu_torch.ops.sample import DrawPool
-from chroma_tpu_torch.ops.types import from_jax_arrays
+
+from test_torch_host import J, T
 
 torch.set_num_threads(2)
 
@@ -73,12 +73,15 @@ def assert_states_match(js, ts, min_equal=1.0, scaled=False):
 
 @pytest.fixture(scope='module')
 def tiny():
-    geo = demo.tiny()
-    geo.flatten()
-    ga = jtypes.build_geometry_arrays(geo)
+    "demo.tiny() as each package builds it, and the JAX bomb's state."
+    arrays = []
+    for h, types in ((J, jtypes), (T, ttypes)):
+        geo = h.demo.tiny()
+        geo.flatten()
+        arrays.append(types.build_geometry_arrays(geo))
     np.random.seed(11)
-    bomb = photon_bomb(N, 400.0, (0, 0, 0))
-    return ga, from_jax_arrays(ga), jprop.photon_state_from_host(bomb)
+    bomb = J.photon_bomb(N, 400.0, (0, 0, 0))
+    return (*arrays, jprop.photon_state_from_host(bomb))
 
 
 def test_step_matches_jax(tiny):

@@ -14,14 +14,13 @@ import pytest
 import torch
 import jax
 
-from chroma_tpu import demo
-from chroma_tpu.generator import photon_bomb
 from chroma_tpu.ops import types as jtypes
 from chroma_tpu.ops import propagate as jprop
 from chroma_tpu.ops.sample import make_key
 from chroma_tpu_torch.ops import propagate as tprop
-from chroma_tpu_torch.ops.types import from_jax_arrays
+from chroma_tpu_torch.ops import types as ttypes
 
+from test_torch_host import J, T
 from test_torch_photon import assert_states_match
 
 torch.set_num_threads(2)
@@ -32,16 +31,21 @@ STEPS = 10
 
 @pytest.fixture(scope='module')
 def tiny():
-    geo = demo.tiny()
-    geo.flatten()
-    ga = jtypes.build_geometry_arrays(geo)
-    np.random.seed(12)
-    bomb = photon_bomb(N, 400.0, (0, 0, 0))
-    return ga, from_jax_arrays(ga), bomb
+    """demo.tiny() and a bomb (numpy seed 12), each built by each package:
+    (JAX arrays, port arrays, JAX bomb, port bomb)."""
+    out = []
+    for h, types in ((J, jtypes), (T, ttypes)):
+        geo = h.demo.tiny()
+        geo.flatten()
+        out.append(types.build_geometry_arrays(geo))
+    for h in (J, T):
+        np.random.seed(12)
+        out.append(h.photon_bomb(N, 400.0, (0, 0, 0)))
+    return tuple(out)
 
 
 def test_ten_steps_match_jax(tiny):
-    ga, ta, bomb = tiny
+    ga, ta, bomb, t_bomb = tiny
     key = make_key(9)
     js, steps, _ = jprop.run_steps(jprop.photon_state_from_host(bomb), ga,
                                    key, 0, STEPS)
@@ -51,8 +55,9 @@ def test_ten_steps_match_jax(tiny):
         return np.asarray(jax.random.uniform(
             jax.random.fold_in(jax.random.fold_in(key, step), b), (8, N)))
 
-    ts, done, alive = tprop.run_steps(tprop.photon_state_from_host(bomb, 'cpu'),
-                                      ta, None, 0, STEPS, blocks=blocks)
+    ts, done, alive = tprop.run_steps(
+        tprop.photon_state_from_host(t_bomb, 'cpu'), ta, None, 0, STEPS,
+        blocks=blocks)
     assert done == STEPS and alive > 0
     assert_states_match(js, ts, min_equal=0.999, scaled=True)
 
@@ -60,8 +65,8 @@ def test_ten_steps_match_jax(tiny):
 def test_chunked_driver_compacts_and_writes_back(tiny):
     """The chunked driver (compaction between chunks) returns every lane's
     final state at its input index, reproducibly for a seed."""
-    _, ta, bomb = tiny
-    state = tprop.photon_state_from_host(bomb, 'cpu')
+    _, ta, _, t_bomb = tiny
+    state = tprop.photon_state_from_host(t_bomb, 'cpu')
     out = tprop.propagate(state, ta, seed=3, max_steps=STEPS)
     assert len(out) == N
     # the input order is kept: evidx/wavelength ride along unchanged

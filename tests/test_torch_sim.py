@@ -7,7 +7,9 @@ independent runs (the two use different random streams), and so must a
 box with a thin-film complex surface. Also: batching routes results to
 their events, a CUDA device without a card raises, and the whole package
 imports and runs -- a reemitting medium and the likelihood included --
-with jax and flax blocked, as on a machine that has neither."""
+with jax, flax and the JAX package chroma_tpu blocked, as on a machine
+that has none of them. Each side builds its geometry and photons from its
+own package (test_torch_host.host)."""
 import os
 import subprocess
 import sys
@@ -17,15 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from chroma_tpu import demo, event
-from chroma_tpu.detector import Detector
-from chroma_tpu.generator import photon_bomb
-from chroma_tpu.geometry import (Material, Solid, Surface, vacuum,
-                                 SURFACE_COMPLEX)
-from chroma_tpu.make import box
 from chroma_tpu.ops.types import build_geometry_arrays
 import chroma_tpu_torch
-from chroma_tpu_torch.ops.types import from_jax_arrays
+
+from test_torch_host import J, T, _box_detector
 
 torch.set_num_threads(2)
 
@@ -33,31 +30,35 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _counts(ev):
+    event = J.event
     f = ev.photons_end.flags
     return {'detected': len(ev.flat_hits),
             'bulk_absorb': int(((f & event.BULK_ABSORB) != 0).sum()),
             'no_hit': int(((f & event.NO_HIT) != 0).sum())}
 
 
-def _jax_and_port_events(geo, n, monkeypatch):
-    """One 400 nm bomb of n photons through chroma_tpu.Simulation and the
-    port's, on the same geometry arrays; returns both events."""
+def _jax_and_port_events(build, n, monkeypatch):
+    """One 400 nm bomb of n photons (numpy seed 1) through
+    chroma_tpu.Simulation and the port's, each on the geometry build(h)
+    and the bomb that its own package makes; returns both events."""
     from chroma_tpu.sim import Simulation as JaxSimulation
     # one fused stage: the JAX driver skips its probe bomb and schedule
     # tuning (compile time); the physics and the statistics are the same
     monkeypatch.setenv('CHROMA_FUSED_SCHEDULE', 'none')
-    ga = build_geometry_arrays(geo)
-    np.random.seed(1)
-    bomb = photon_bomb(n, 400.0, (0, 0, 0))
-
-    jsim = JaxSimulation(geo, seed=0, gpu_geometry=ga)
-    jev = next(jsim.simulate([bomb[:]], run_daq=True, max_steps=100,
-                             keep_photons_end=True))
-    tsim = chroma_tpu_torch.Simulation(geo, seed=0, device='cpu',
-                                       geometry_arrays=from_jax_arrays(ga))
-    tev = next(tsim.simulate([bomb[:]], run_daq=True, max_steps=100,
-                             keep_photons_end=True))
-    return jev, tev
+    events = []
+    for h in (J, T):
+        geo = build(h)
+        np.random.seed(1)
+        bomb = h.photon_bomb(n, 400.0, (0, 0, 0))
+        if h is J:
+            sim = JaxSimulation(geo, seed=0,
+                                gpu_geometry=build_geometry_arrays(geo))
+        else:
+            sim = chroma_tpu_torch.Simulation(geo, seed=0, device='cpu')
+        events.append(next(sim.simulate([bomb], run_daq=True,
+                                        max_steps=100,
+                                        keep_photons_end=True)))
+    return events
 
 
 def _assert_counts_agree(jc, tc, n):
@@ -69,11 +70,16 @@ def _assert_counts_agree(jc, tc, n):
                                                                   tc)
 
 
-def test_matches_jax_simulation(monkeypatch):
-    geo = demo.tiny()
+def _tiny(h):
+    geo = h.demo.tiny()
     geo.flatten()
+    return geo
+
+
+def test_matches_jax_simulation(monkeypatch):
     n = 16384
-    jev, tev = _jax_and_port_events(geo, n, monkeypatch)
+    jev, tev = _jax_and_port_events(_tiny, n, monkeypatch)
+    assert type(tev).__module__ == 'chroma_tpu_torch.event'
     jc, tc = _counts(jev), _counts(tev)
     _assert_counts_agree(jc, tc, n)
     assert tc['detected'] > 0
@@ -81,31 +87,16 @@ def test_matches_jax_simulation(monkeypatch):
     assert tev.channels.hit.sum() == len(tev.hits)
     assert set(np.flatnonzero(tev.channels.hit)) == set(tev.hits)
     assert len(tev.photons_end) == n
-    assert (tev.flat_hits.flags & event.SURFACE_DETECT).all()
-
-
-def _box_detector():
-    water = Material('w')
-    water.set('refractive_index', 1.33)
-    water.set('absorption_length', 1e5)
-    water.set('scattering_length', 1e5)
-    pc = Surface('pc')
-    pc.set('detect', 0.5)
-    pc.set('absorb', 0.5)
-    det = Detector(vacuum)
-    det.add_pmt(Solid(box(1000.0, 1000, 1000), water, vacuum, surface=pc))
-    det.set_time_dist_gaussian(1.2, -6.0, 6.0)
-    det.set_charge_dist_gaussian(1.0, 0.1, 0.5, 1.5)
-    return det
+    assert (tev.flat_hits.flags & T.event.SURFACE_DETECT).all()
 
 
 def test_multi_event_batch_routing():
-    sim = chroma_tpu_torch.Simulation(_box_detector(), seed=31,
+    sim = chroma_tpu_torch.Simulation(_box_detector(T), seed=31,
                                       device='cpu')
     np.random.seed(0)
     sizes = [100, 300, 200]
-    events = [event.Event(id=i, photons_beg=photon_bomb(k, 400.0,
-                                                        (0, 0, 0)))
+    events = [T.event.Event(id=i, photons_beg=T.photon_bomb(k, 400.0,
+                                                            (0, 0, 0)))
               for i, k in enumerate(sizes)]
     out = list(sim.simulate(iter(events), keep_photons_end=True,
                             run_daq=True, photons_per_batch=10000))
@@ -121,37 +112,39 @@ def test_multi_event_batch_routing():
 def test_cuda_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError):
-        chroma_tpu_torch.Simulation(_box_detector(), device='cuda')
+        chroma_tpu_torch.Simulation(_box_detector(T), device='cuda')
 
 
 def test_unsupported_surface_model_raises(monkeypatch):
     """A surface model other than the default -- a thin absorbing film
     (the complex model) on a block inside the box detector -- simulates on
     the port with the JAX package's statistics."""
-    det = _box_detector()
-    film = Surface('film', model=SURFACE_COMPLEX)
-    film.set('detect', 0.3)
-    film.set('eta', 2.7)
-    film.set('k', 1.5)
-    film.thickness = 25.0
-    film.transmissive = 1
-    glass = Material('glass')
-    glass.set('refractive_index', 1.5)
-    glass.set('absorption_length', 1e4)
-    glass.set('scattering_length', 1e6)
-    water = det.solids[0].material1[0]
-    det.add_solid(Solid(box(300.0, 300, 300), glass, water, surface=film),
-                  displacement=(0, 0, 250.0))
-    det.flatten()
+    def filmed(h):
+        det = _box_detector(h)
+        film = h.Surface('film', model=h.SURFACE_COMPLEX)
+        film.set('detect', 0.3)
+        film.set('eta', 2.7)
+        film.set('k', 1.5)
+        film.thickness = 25.0
+        film.transmissive = 1
+        glass = h.Material('glass')
+        glass.set('refractive_index', 1.5)
+        glass.set('absorption_length', 1e4)
+        glass.set('scattering_length', 1e6)
+        water = det.solids[0].material1[0]
+        det.add_solid(h.Solid(h.box(300.0, 300, 300), glass, water,
+                              surface=film), displacement=(0, 0, 250.0))
+        det.flatten()
+        return det
     n = 16384
-    jev, tev = _jax_and_port_events(det, n, monkeypatch)
+    jev, tev = _jax_and_port_events(filmed, n, monkeypatch)
 
     def counts(ev):
         f = ev.photons_end.flags
         c = _counts(ev)
         for name in ('SURFACE_ABSORB', 'SURFACE_TRANSMIT', 'REFLECT_DIFFUSE',
                      'REFLECT_SPECULAR'):
-            c[name] = int(((f & getattr(event, name)) != 0).sum())
+            c[name] = int(((f & getattr(J.event, name)) != 0).sum())
         return c
     jc, tc = counts(jev), counts(tev)
     _assert_counts_agree(jc, tc, n)
@@ -162,9 +155,11 @@ BLOCKED_RUN = textwrap.dedent('''
     import importlib, pkgutil, sys
     assert 'jax' not in sys.modules
 
+    BLOCKED = ('jax', 'jaxlib', 'flax', 'chroma_tpu')
+
     class Blocker:
         def find_spec(self, name, path=None, target=None):
-            if name.split('.')[0] in ('jax', 'jaxlib', 'flax'):
+            if name.split('.')[0] in BLOCKED:
                 raise ImportError('blocked: ' + name)
             return None
 
@@ -174,10 +169,10 @@ BLOCKED_RUN = textwrap.dedent('''
     for m in pkgutil.walk_packages(chroma_tpu_torch.__path__,
                                    'chroma_tpu_torch.'):
         importlib.import_module(m.name)
-    from chroma_tpu.detector import Detector
-    from chroma_tpu.generator import photon_bomb
-    from chroma_tpu.geometry import Material, Solid, Surface, vacuum
-    from chroma_tpu.make import box
+    from chroma_tpu_torch.detector import Detector
+    from chroma_tpu_torch.generator import photon_bomb
+    from chroma_tpu_torch.geometry import Material, Solid, Surface, vacuum
+    from chroma_tpu_torch.make import box
     water = Material('w')
     for name, value in (('refractive_index', 1.33),
                         ('absorption_length', 1e5),
@@ -196,9 +191,8 @@ BLOCKED_RUN = textwrap.dedent('''
                            run_daq=True, max_steps=100))
     assert 0 < len(ev.flat_hits) < 1024 and ev.channels.hit[0]
 
-    # the likelihood facade, reused from chroma_tpu
-    from chroma_tpu import event
-    from chroma_tpu.likelihood import Likelihood
+    # the port's own likelihood facade
+    from chroma_tpu_torch import event, Likelihood
     events = (event.Event(photons_beg=photon_bomb(200, 400.0, (0, 0, 0)))
               for _ in range(100))
     lk = Likelihood(sim, ev, trange=(-0.5, 20.0))
@@ -209,7 +203,7 @@ BLOCKED_RUN = textwrap.dedent('''
                                       navg=2).nominal_value)
 
     # a scintillating medium: bulk reemission
-    from chroma_tpu.geometry import Geometry, standard_wavelengths as wl
+    from chroma_tpu_torch.geometry import Geometry, standard_wavelengths as wl
     scint = Material('scint')
     for name, value in (('refractive_index', 1.5),
                         ('absorption_length', 100.0),
@@ -228,7 +222,7 @@ BLOCKED_RUN = textwrap.dedent('''
     ev = next(scint_sim.simulate([photon_bomb(1024, 350.0, (0, 0, 0))],
                                  keep_photons_end=True, max_steps=2))
     assert ((ev.photons_end.flags & event.BULK_REEMIT) != 0).sum() > 900
-    assert not any(m.split('.')[0] in ('jax', 'flax') for m in sys.modules)
+    assert not any(m.split('.')[0] in BLOCKED for m in sys.modules)
     print('OK', len(ev.photons_end))
 ''')
 

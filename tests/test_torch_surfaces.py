@@ -22,24 +22,16 @@ import pytest
 import torch
 import jax
 
-from chroma_tpu import event
-from chroma_tpu.detector import Detector
-from chroma_tpu.generator import photon_bomb
-from chroma_tpu.geometry import (Solid, Material, Surface, WirePlane,
-                                 DichroicProps, AngularProps, vacuum,
-                                 SURFACE_COMPLEX, SURFACE_WLS,
-                                 SURFACE_DICHROIC, SURFACE_ANGULAR,
-                                 standard_wavelengths, standard_times)
-from chroma_tpu.make import box
 from chroma_tpu.ops import photon as jphoton
 from chroma_tpu.ops import propagate as jprop
 from chroma_tpu.ops import sample as jsample
 from chroma_tpu.ops import types as jtypes
 import chroma_tpu_torch
 from chroma_tpu_torch.ops import photon
+from chroma_tpu_torch.ops import types as ttypes
 from chroma_tpu_torch.ops.sample import DrawPool
-from chroma_tpu_torch.ops.types import from_jax_arrays
 
+from test_torch_host import J, T
 from test_torch_photon import (FLOAT_FIELDS, INT_FIELDS, jax_blocks,
                                torch_state)
 
@@ -63,13 +55,13 @@ def _gauss_cdf(x, mean, sigma):
     return cdf / cdf[-1]
 
 
-def all_models_detector():
+def all_models_detector(h):
     """A 2 m box of reemitting water-based scintillator behind a WLS wall,
     with a complex-film PMT (the one channel), angular, dichroic, default
     and plain glass blocks around the centre and an absorbing wire plane
-    above it."""
-    wl = standard_wavelengths
-    scint = Material('wbls')
+    above it, from host namespace h (test_torch_host.host)."""
+    wl = h.standard_wavelengths
+    scint = h.Material('wbls')
     scint.set('refractive_index', 1.36)
     scint.set('absorption_length', 3000.0)
     scint.set('scattering_length', 4000.0)
@@ -77,62 +69,62 @@ def all_models_detector():
     scint.comp_reemission_wvl_cdf = [_pairs(wl, _gauss_cdf(wl, 430, 15)),
                                      _pairs(wl, _gauss_cdf(wl, 480, 25))]
     scint.comp_reemission_time_cdf = [
-        _pairs(standard_times, 1.0 - np.exp(-standard_times / 5.0)),
-        _pairs(standard_times, 1.0 - np.exp(-standard_times / 20.0))]
+        _pairs(h.standard_times, 1.0 - np.exp(-h.standard_times / 5.0)),
+        _pairs(h.standard_times, 1.0 - np.exp(-h.standard_times / 20.0))]
     scint.comp_absorption_length = [_pairs(wl, 5000.0), _pairs(wl, 7500.0)]
-    glass = Material('glass')
+    glass = h.Material('glass')
     glass.set('refractive_index', 1.49)
     glass.set('absorption_length', 1e4)
     glass.set('scattering_length', 1e6)
-    metal = Material('metal')
+    metal = h.Material('metal')
     metal.set('refractive_index', 1.5)
     metal.set('absorption_length', 1e-3)
     metal.set('scattering_length', 1e6)
 
-    pc = Surface('pc', model=SURFACE_COMPLEX)
+    pc = h.Surface('pc', model=h.SURFACE_COMPLEX)
     pc.set('detect', 0.3)
     pc.set('reflect_diffuse', 0.2)
     pc.set('eta', 2.7)
     pc.set('k', 1.5)
     pc.thickness = 25.0
     pc.transmissive = 1
-    wls = Surface('wls', model=SURFACE_WLS)
+    wls = h.Surface('wls', model=h.SURFACE_WLS)
     wls.set('absorb', 0.5)
     wls.set('reemit', 0.8)
     wls.set('reflect_specular', 0.1)
     wls.set('reflect_diffuse', 0.1)
     wls.set('reemission_cdf', _gauss_cdf(wl, 500.0, 20.0))
     wls.transmissive = 1
-    dichroic = Surface('dichroic', model=SURFACE_DICHROIC)
+    dichroic = h.Surface('dichroic', model=h.SURFACE_DICHROIC)
     wl_pts = np.array([300.0, 449.0, 451.0, 800.0])
-    dichroic.dichroic_props = DichroicProps(
+    dichroic.dichroic_props = h.DichroicProps(
         [0.0, np.pi / 2],
         [np.column_stack([wl_pts, [1.0, 1.0, 0.0, 0.0]])] * 2,
         [np.column_stack([wl_pts, [0.0, 0.0, 0.9, 0.9]])] * 2)
     dichroic.transmissive = 1
-    angular = Surface('angular', model=SURFACE_ANGULAR)
-    angular.angular_props = AngularProps(
+    angular = h.Surface('angular', model=h.SURFACE_ANGULAR)
+    angular.angular_props = h.AngularProps(
         [0.0, np.pi / 4, np.pi / 2], transmit=[0.8, 0.3, 0.0],
         reflect_specular=[0.1, 0.3, 0.2], reflect_diffuse=[0.05, 0.2, 0.4])
     angular.transmissive = 1
-    default = Surface('default')        # 20% residual PASS
+    default = h.Surface('default')        # 20% residual PASS
     default.set('detect', 0.3)
     default.set('absorb', 0.2)
     default.set('reflect_diffuse', 0.2)
     default.set('reflect_specular', 0.1)
-    wire = Surface('wire')
+    wire = h.Surface('wire')
     wire.set('absorb', 1.0)
 
-    det = Detector(vacuum)
-    det.add_solid(Solid(box(2000.0, 2000.0, 2000.0), scint, vacuum,
-                        surface=wls))
-    det.add_pmt(Solid(box(300.0, 300.0, 300.0), glass, scint, surface=pc),
-                displacement=(500.0, 0, 0))
+    det = h.Detector(h.vacuum)
+    det.add_solid(h.Solid(h.box(2000.0, 2000.0, 2000.0), scint, h.vacuum,
+                          surface=wls))
+    det.add_pmt(h.Solid(h.box(300.0, 300.0, 300.0), glass, scint,
+                        surface=pc), displacement=(500.0, 0, 0))
     for disp, surf in (((-500.0, 0, 0), angular), ((0, 500.0, 0), dichroic),
                        ((0, -500.0, 0), default), ((0, 0, -500.0), None)):
-        det.add_solid(Solid(box(300.0, 300.0, 300.0), glass, scint,
-                            surface=surf), displacement=disp)
-    det.add_wireplane(WirePlane(
+        det.add_solid(h.Solid(h.box(300.0, 300.0, 300.0), glass, scint,
+                              surface=surf), displacement=disp)
+    det.add_wireplane(h.WirePlane(
         origin=(0, 0, 100.0), u=(1, 0, 0), v=(0, 1, 0), pitch=3.0,
         radius=1.0, umin=-800, umax=800, vmin=-800, vmax=800,
         surface=wire, material_inner=metal, material_outer=scint))
@@ -145,7 +137,7 @@ def all_models_detector():
 def bomb(n, seed):
     "Isotropic photons from the centre, 350-550 nm."
     np.random.seed(seed)
-    ph = photon_bomb(n, 400.0, (0, 0, 0))
+    ph = J.photon_bomb(n, 400.0, (0, 0, 0))
     ph.wavelengths = np.random.uniform(350.0, 550.0, n).astype(np.float32)
     return ph
 
@@ -165,11 +157,12 @@ def fresh_module(name, monkeypatch, **env):
 
 @pytest.fixture(scope='module')
 def geometry():
-    det = all_models_detector()
-    ga = jtypes.build_geometry_arrays(det)
+    "The all-models detector as each package builds it, and the bomb."
+    ga = jtypes.build_geometry_arrays(all_models_detector(J))
     assert ga.surfaces.models_present == (0, 1, 2, 3, 4)
     assert ga.materials.has_reemission and ga.has_wireplanes
-    return ga, from_jax_arrays(ga), jprop.photon_state_from_host(bomb(N, 5))
+    ta = ttypes.build_geometry_arrays(all_models_detector(T))
+    return ga, ta, jprop.photon_state_from_host(bomb(N, 5))
 
 
 def assert_lanes_agree(js, ts, min_equal=0.999):
@@ -218,6 +211,7 @@ def run_steps_against_jax(ga, ta, js, key, jstep, tstep, **opts):
 
 def _flag_counts(js):
     f = np.asarray(js.flags)
+    event = J.event
     return {name: int(((f & bit) != 0).sum()) for name, bit in (
         ('detect', event.SURFACE_DETECT), ('absorb', event.SURFACE_ABSORB),
         ('reemit', event.SURFACE_REEMIT), ('transmit', event.SURFACE_TRANSMIT),
@@ -300,7 +294,7 @@ def _beam(n, wavelength=350.0, direction=(0.0, 0.0, 1.0)):
     "A pencil beam from the origin (tests/test_surfaces.py)."
     np.random.seed(0)
     phi = np.random.uniform(0, 2 * np.pi, n)
-    return event.Photons(
+    return T.event.Photons(
         pos=np.zeros((n, 3), np.float32),
         dir=np.tile(direction, (n, 1)).astype(np.float32),
         pol=np.column_stack([np.cos(phi), np.sin(phi), np.zeros(n)]),
@@ -308,10 +302,9 @@ def _beam(n, wavelength=350.0, direction=(0.0, 0.0, 1.0)):
         t=np.zeros(n, np.float32))
 
 
-def _box_sim(surface, seed, dims=(1000, 1000, 1000), inside=vacuum):
-    from chroma_tpu.geometry import Geometry
-    geo = Geometry(vacuum)
-    geo.add_solid(Solid(box(*dims), inside, vacuum, surface=surface))
+def _box_sim(surface, seed, dims=(1000, 1000, 1000), inside=T.vacuum):
+    geo = T.Geometry(T.vacuum)
+    geo.add_solid(T.Solid(T.box(*dims), inside, T.vacuum, surface=surface))
     return chroma_tpu_torch.Simulation(geo, seed=seed, device='cpu')
 
 
@@ -330,9 +323,10 @@ def _bits(pe, bit):
 def test_surface_geometries_simulate(case):
     """Each geometry of tests/test_surfaces.py simulates on the port with
     the distributions that file checks for the JAX package."""
-    wl = standard_wavelengths
+    event = T.event
+    wl = T.standard_wavelengths
     if case == 'wls':
-        s = Surface('wls', model=SURFACE_WLS)
+        s = T.Surface('wls', model=T.SURFACE_WLS)
         s.set('absorb', 1.0)
         s.set('reemit', 1.0)
         s.set('reemission_cdf', _gauss_cdf(wl, 500.0, 20.0))
@@ -345,8 +339,8 @@ def test_surface_geometries_simulate(case):
         assert abs(pe.dir[re][:, 2].mean()) < 0.05
     elif case == 'dichroic':
         wl_pts = np.array([300.0, 449.0, 451.0, 800.0])
-        s = Surface('dichroic', model=SURFACE_DICHROIC)
-        s.dichroic_props = DichroicProps(
+        s = T.Surface('dichroic', model=T.SURFACE_DICHROIC)
+        s.dichroic_props = T.DichroicProps(
             [0.0, np.pi / 2],
             [np.column_stack([wl_pts, [1.0, 1.0, 0.0, 0.0]])] * 2,
             [np.column_stack([wl_pts, [0.0, 0.0, 1.0, 1.0]])] * 2)
@@ -357,8 +351,8 @@ def test_surface_geometries_simulate(case):
         assert _bits(_ends(sim, _beam(5000, 550.0), 2),
                      event.SURFACE_TRANSMIT).mean() > 0.99
     elif case == 'angular':
-        s = Surface('angular', model=SURFACE_ANGULAR)
-        s.angular_props = AngularProps(
+        s = T.Surface('angular', model=T.SURFACE_ANGULAR)
+        s.angular_props = T.AngularProps(
             [0.0, np.pi / 4, np.pi / 2], transmit=[1.0, 0.0, 0.0],
             reflect_specular=[0.0, 0.0, 0.0],
             reflect_diffuse=[0.0, 0.0, 0.0])
@@ -371,7 +365,7 @@ def test_surface_geometries_simulate(case):
         assert _bits(_ends(sim, oblique, 2),
                      event.SURFACE_ABSORB).mean() > 0.99
     elif case.startswith('complex'):
-        s = Surface('film', model=SURFACE_COMPLEX)
+        s = T.Surface('film', model=T.SURFACE_COMPLEX)
         metal = case == 'complex_metal'
         s.set('eta', 1.5 if metal else 1.0)
         s.set('k', 3.0 if metal else 0.0)
@@ -388,7 +382,7 @@ def test_surface_geometries_simulate(case):
             assert _bits(pe, event.SURFACE_TRANSMIT).mean() > 0.98
             assert ended.mean() < 0.01
     else:
-        scint = Material('scint')
+        scint = T.Material('scint')
         scint.set('refractive_index', 1.5)
         scint.set('absorption_length', 100.0)
         scint.set('scattering_length', 1e9)
@@ -396,7 +390,7 @@ def test_surface_geometries_simulate(case):
         scint.comp_reemission_wvl_cdf = [_pairs(wl, _gauss_cdf(wl, 430.0,
                                                               15.0))]
         scint.comp_reemission_time_cdf = [_pairs(
-            standard_times, 1.0 - np.exp(-standard_times / 5.0))]
+            T.standard_times, 1.0 - np.exp(-T.standard_times / 5.0))]
         scint.comp_absorption_length = [_pairs(wl, 100.0)]
         pe = _ends(_box_sim(None, 9, dims=(5000, 5000, 5000), inside=scint),
                    _beam(20000), 2)

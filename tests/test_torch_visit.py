@@ -4,23 +4,24 @@ The plain PyTorch traversal (chroma_tpu_torch.ops.mesh_wide) must return
 the JAX query's triangles, instance ids, material codes and visit counts
 exactly, and its distances and normals to rtol 1e-5 (the FMA allowance of
 tests/test_visit_kernel.py), in all three bounds formats, with masks,
-distance limits and last-hit exclusions. The CUDA kernel is held to this
-plain version on the card by tests/test_torch_cuda.py, which imports no
-JAX."""
+distance limits and last-hit exclusions. Each side builds the fixture
+geometry and its table from its own package. The CUDA kernel is held to
+this plain version on the card by tests/test_torch_cuda.py, which imports
+no JAX."""
 import numpy as np
 import pytest
 import torch
 import jax
 import jax.numpy as jnp
 
-from chroma_tpu.geometry import Geometry, Solid
-from chroma_tpu.demo.optics import water, glass
-from chroma_tpu.make import box, sphere
+from importlib import import_module
+
 from chroma_tpu.ops.types import pack_material_codes
 from chroma_tpu.bvh.wide import build_instanced_bvh
 from chroma_tpu.ops import mesh_wide as jmesh
-from chroma_tpu_torch.bvh.wide import InstancedBVH
+from chroma_tpu_torch.bvh import wide as twide
 from chroma_tpu_torch.ops import mesh_wide, visit_kernel
+from chroma_tpu_torch.ops import types as ttypes
 
 torch.set_num_threads(2)
 
@@ -28,34 +29,43 @@ torch.set_num_threads(2)
 FORMATS = {'f32': (0, 'f32'), 'bf16': (32, 'bf16'), 'q8': (32, 'q8')}
 
 
-@pytest.fixture(scope='module')
-def placed():
-    "The tests/test_visit_kernel.py fixture geometry, flattened."
-    geo = Geometry(water)
-    geo.add_solid(Solid(box(100.0, 80.0, 60.0), glass, water))
-    geo.add_solid(Solid(sphere(30.0, nsteps=24), glass, water),
+def _placed(pkg, pack):
+    """The tests/test_visit_kernel.py fixture geometry, flattened, built by
+    package `pkg`'s host modules: (instances, material codes)."""
+    geometry = import_module(pkg + '.geometry')
+    optics = import_module(pkg + '.demo.optics')
+    make = import_module(pkg + '.make')
+    water, glass = optics.water, optics.glass
+    geo = geometry.Geometry(water)
+    geo.add_solid(geometry.Solid(make.box(100.0, 80.0, 60.0), glass, water))
+    geo.add_solid(geometry.Solid(make.sphere(30.0, nsteps=24), glass, water),
                   displacement=(120.0, 0.0, 0.0))
-    geo.add_solid(Solid(box(40.0, 40.0, 40.0), glass, water),
+    geo.add_solid(geometry.Solid(make.box(40.0, 40.0, 40.0), glass, water),
                   displacement=(-120.0, 30.0, 0.0))
     geo.flatten()
-    codes = pack_material_codes(geo.material1_index, geo.material2_index,
-                                geo.surface_index)
+    codes = pack(geo.material1_index, geo.material2_index,
+                 geo.surface_index)
     tri_base = np.cumsum([0] + [len(s.mesh.triangles) for s in geo.solids])
     instances = [(s.mesh, geo.solid_rotations[i], geo.solid_displacements[i],
                   int(tri_base[i])) for i, s in enumerate(geo.solids)]
     return instances, codes
 
 
+@pytest.fixture(scope='module')
+def placed():
+    "The fixture geometry built twice: by chroma_tpu and by the port."
+    return (_placed('chroma_tpu', pack_material_codes),
+            _placed('chroma_tpu_torch', ttypes.pack_material_codes))
+
+
 def _tables(placed, fmt):
-    "(JAX InstancedBVH, the port's copy of the same rows)."
-    instances, codes = placed
+    "(JAX InstancedBVH, the port's table of its own build)."
+    (j_inst, j_codes), (t_inst, t_codes) = placed
     pf, bf = FORMATS[fmt]
-    jw = build_instanced_bvh(instances, material_codes=codes,
+    jw = build_instanced_bvh(j_inst, material_codes=j_codes,
                              packed_fanout=pf, bounds_fmt=bf)
-    tw = InstancedBVH(rows=torch.from_numpy(np.array(jw.rows)),
-                      max_depth=jw.max_depth, fanout=jw.fanout,
-                      leaf_size=jw.leaf_size, n_instances=jw.n_instances,
-                      packed=jw.packed, bounds_fmt=jw.bounds_fmt)
+    tw = twide.build_instanced_bvh(t_inst, material_codes=t_codes,
+                                   packed_fanout=pf, bounds_fmt=bf)
     return jw, tw
 
 
@@ -139,6 +149,54 @@ def test_plain_traversal_matches_jax(placed, fmt):
         torch.from_numpy(last), torch.from_numpy(mask),
         torch.from_numpy(limit))
     np.testing.assert_array_equal(visits.numpy(), ref[5])
+
+
+def test_visits_by_kind(placed):
+    """by_kind splits each lane's visits by row tag (internal, leaf,
+    instance); they sum to the plain visit count, every hit went through a
+    leaf, and every lane that was traced entered the root."""
+    _, tw = _tables(placed, 'bf16')
+    o, d, mask, limit, last = _rays(512, 6)
+    ref = _torch_query(tw, o, d, mask, limit, last)
+    kinds = mesh_wide.traverse(
+        tw, torch.from_numpy(o), torch.from_numpy(d),
+        torch.from_numpy(last), torch.from_numpy(mask),
+        torch.from_numpy(limit), by_kind=True)[5].numpy()
+    assert kinds.shape == (512, 3)
+    np.testing.assert_array_equal(kinds.sum(axis=1), ref[5])
+    assert (kinds[ref[0] >= 0, 1] >= 1).all()
+    assert (kinds[mask].sum(axis=1) >= 1).all()
+    assert (kinds[~mask] == 0).all()
+    before = visit_kernel.launches
+    cpu = visit_kernel.traverse(
+        tw, torch.from_numpy(o), torch.from_numpy(d),
+        torch.from_numpy(last), torch.from_numpy(mask),
+        torch.from_numpy(limit), by_kind=True)[5].numpy()
+    np.testing.assert_array_equal(cpu, kinds)
+    assert visit_kernel.launches == before
+
+
+def test_rows_seen(placed):
+    """`seen` marks the rows the walk visits: the root for every traced
+    lane, no more rows than visits for one ray, nothing for a masked one,
+    and for a batch the union of its rays' rows."""
+    _, tw = _tables(placed, 'bf16')
+    o, d, mask, limit, last = _rays(32, 7)
+    args = [torch.from_numpy(x) for x in (o, d, last, mask, limit)]
+    nrows = tw.rows.shape[0]
+    seen = torch.zeros(nrows, dtype=torch.bool)
+    visits = mesh_wide.traverse(tw, *args, seen=seen)[5].numpy()
+    union = torch.zeros(nrows, dtype=torch.bool)
+    for i in range(32):
+        one = torch.zeros(nrows, dtype=torch.bool)
+        mesh_wide.traverse(tw, *[a[i:i + 1] for a in args], seen=one)
+        assert int(one.sum()) <= visits[i]
+        assert bool(one[0]) == bool(mask[i])
+        if not mask[i]:
+            assert not one.any()
+        union |= one
+    assert mask.any() and int(seen.sum()) > 1
+    assert torch.equal(seen, union)
 
 
 def test_wrapper_takes_plain_version_on_cpu(placed):

@@ -12,10 +12,6 @@ import pytest
 import torch
 import jax
 
-from chroma_tpu import event
-from chroma_tpu.geometry import (Geometry, Solid, Material, Surface,
-                                 WirePlane, vacuum)
-from chroma_tpu.make import box
 from chroma_tpu.ops import types as jtypes
 from chroma_tpu.ops.wireplane import intersect_wireplanes as jax_wires
 from chroma_tpu_torch.ops import types as ttypes
@@ -23,28 +19,31 @@ from chroma_tpu_torch.ops.propagate import photon_state_from_host, propagate
 from chroma_tpu_torch.ops.wireplane import (candidate_windows,
                                             intersect_wireplanes)
 
+from test_torch_host import J, T
+
 torch.set_num_threads(2)
 
 
-def lartpc(angles_deg=(0.0,), gap=3.0, radius=0.15):
+def lartpc(h, angles_deg=(0.0,), gap=3.0, radius=0.15):
     """Liquid argon in a 2 m box with absorbing wire planes at z = 0, gap,
-    2*gap, ...: 3 mm pitch, 1 m x 1 m, wires at `angles_deg` to x."""
-    lar = Material('lar')
+    2*gap, ...: 3 mm pitch, 1 m x 1 m, wires at `angles_deg` to x; from
+    host namespace h (test_torch_host.host)."""
+    lar = h.Material('lar')
     lar.set('refractive_index', 1.38)
     lar.set('absorption_length', 1e6)
     lar.set('scattering_length', 1e6)
-    metal = Material('metal')
+    metal = h.Material('metal')
     metal.set('refractive_index', 1.5)
     metal.set('absorption_length', 1e-3)
     metal.set('scattering_length', 1e6)
-    wire_surface = Surface('wire')
+    wire_surface = h.Surface('wire')
     wire_surface.set('absorb', 1)
 
-    geo = Geometry(vacuum)
-    geo.add_solid(Solid(box(2000, 2000, 2000), lar, vacuum))
+    geo = h.Geometry(h.vacuum)
+    geo.add_solid(h.Solid(h.box(2000, 2000, 2000), lar, h.vacuum))
     for i, deg in enumerate(angles_deg):
         a = np.radians(deg)
-        geo.add_wireplane(WirePlane(
+        geo.add_wireplane(h.WirePlane(
             origin=(0, 0, i * gap), u=(np.cos(a), np.sin(a), 0),
             v=(-np.sin(a), np.cos(a), 0), pitch=3.0, radius=radius,
             umin=-500, umax=500, vmin=-500, vmax=500,
@@ -55,14 +54,14 @@ def lartpc(angles_deg=(0.0,), gap=3.0, radius=0.15):
 
 @pytest.fixture(scope='module', params=['single', 'uvy'])
 def planes(request):
-    geo = lartpc((0.0,)) if request.param == 'single' else \
-        lartpc((0.0, 60.0, -60.0))
-    ga = jtypes.build_geometry_arrays(geo)
-    return request.param, geo, ga, ttypes.build_geometry_arrays(geo)
+    "The planes as each package builds them: (name, JAX, port arrays)."
+    angles = (0.0,) if request.param == 'single' else (0.0, 60.0, -60.0)
+    return (request.param, jtypes.build_geometry_arrays(lartpc(J, angles)),
+            ttypes.build_geometry_arrays(lartpc(T, angles)))
 
 
 def test_wireplane_arrays_match_jax(planes):
-    _, _, ga, ta = planes
+    _, ga, ta = planes
     assert ta.has_wireplanes
     for name in ('origin', 'u', 'v', 'w', 'pitch', 'radius', 'umin', 'umax',
                  'vmin', 'vmax', 'v0', 'surface_index',
@@ -96,7 +95,7 @@ def _rays(kind, n=4096):
 
 @pytest.mark.parametrize('kind', ['head_on', 'oblique', 'isotropic'])
 def test_intersect_matches_jax(planes, kind):
-    name, _, ga, ta = planes
+    name, ga, ta = planes
     pos, d = _rays(kind)
     n = len(pos)
     active = np.ones(n, bool)
@@ -129,7 +128,8 @@ def test_intersect_matches_jax(planes, kind):
 
 def test_propagation_absorbs_on_wires():
     "Photons aimed at wires terminate there; mid-gap photons pass."
-    ta = ttypes.build_geometry_arrays(lartpc((0.0,)))
+    ta = ttypes.build_geometry_arrays(lartpc(T, (0.0,)))
+    event = T.event
     n = 64
     ys = np.linspace(-1.5, 1.5, n)
     ph = event.Photons(np.column_stack([np.zeros(n), ys, np.full(n, 100.0)]),
