@@ -50,9 +50,27 @@ non-zero:
   8. likelihood: a 10 MeV electron's ~10^4 photons in the quick-optics
      detector as the observed event; Likelihood.eval (nreps=4, ndaq=50,
      nevals=4), setup_kernel and eval_kernel (navg=2), create_pdf; the
-     summed hit probability is checked against a CPU run.
+     summed hit probability is checked against a CPU run;
+  9. the user entry points on the quick detector (built in phase 2 through
+     loader.create_geometry_from_obj, auto_build_bvh=False):
+     a. the geocache: its GeometryArrays saved and loaded back (lean) onto
+        the card, every field equal to the build, save and load timed;
+     b. a device-resident source: a 2^20-photon bomb made on the card with
+        an explicit torch.Generator through Simulation(gpu_geometry=the
+        loaded arrays), run_daq and keep_photons_end, no host Photons
+        built before propagation, the detected fraction against phase 5's,
+        and the profiler's regions and counters of the run;
+     c. the facade: GPUPhotons(the same state).propagate(GPUGeometry) and
+        GPUDaq.acquire with the same seed, flags and channels equal 9b's;
+     d. tracking: Simulation(photon_tracking=True) on 10^4 photons, each
+        track at most max_steps + 1 points, its first point on the start's
+        ray, its last point the photon's end state; timed against the same
+        photons untracked;
+     e. the command-line tools: chroma_tpu_torch.cli.sim (2 events of 2^20
+        photons on demo.tiny() with --daq, read back with EventReader) and
+        chroma_tpu_torch.cli.profile, each as a subprocess.
 
-The kernel's launches are counted on each main path (phases 5 to 8, reset
+The kernel's launches are counted on each main path (phases 5 to 9, reset
 just before and read just after) and printed per phase; the first design is
 launched on none of them. The last lines are a JSON object describing the
 kernels, and {"ok": true, "device": {...}}. Needs CUDA and the repository
@@ -60,12 +78,14 @@ checkout.
 """
 import collections
 import contextlib
+import io
 import itertools
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -79,6 +99,8 @@ QUICK = (4000.0, 4500.0, 400.0)     # demo.detector args of the quick cell
 RTOL = 1e-5
 GUN_MEV = 10.0      # phase 8's electron: ~10^4 photons (1000 per MeV)
 LIKELIHOOD = (4, 4, 50)             # phase 8's nevals, nreps, ndaq
+N_TRACK = 10000     # phase 9d's tracked photons
+MAX_STEPS = 100     # steps of every bomb, as in bench.py
 # (packed_fanout, bounds_fmt) of each table format: f32 at fanout 16, bf16
 # and q8 at fanout 32
 FORMATS = {'f32': (0, 'f32'), 'bf16': (32, 'bf16'), 'q8': (32, 'q8')}
@@ -140,12 +162,15 @@ def detector_tables(geo, ga, device):
         device) for fmt in FORMATS}
 
 
-def detector_arrays(args):
+def detector_arrays(args, cache_dir):
+    """demo.detector(*args) through the loader (no classic BVH, as bench.py
+    builds it; its cache in cache_dir) and its GeometryArrays."""
     from chroma_tpu_torch import demo
+    from chroma_tpu_torch.loader import create_geometry_from_obj
     from chroma_tpu_torch.ops.types import build_geometry_arrays
     t0 = time.perf_counter()
-    geo = demo.detector(*args)
-    geo.flatten()
+    geo = create_geometry_from_obj(lambda: demo.detector(*args),
+                                   auto_build_bvh=False, cache_dir=cache_dir)
     ga = build_geometry_arrays(geo)
     log('  built demo.detector%s: %d triangles, %d rows x %d, %s bounds, '
         'fanout %d, depth %d, %.1f s' % (
@@ -822,7 +847,326 @@ def phase_k1_times(tables, device, card):
     return out, err
 
 
-def main(argv):
+def device_bomb(n, seed, device):
+    """An isotropic 400 nm bomb at the origin made on `device` with an
+    explicit torch.Generator: a PhotonState that never was host Photons."""
+    import torch
+    from chroma_tpu_torch.ops.photon import PhotonState
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d = torch.randn((n, 3), generator=gen, device=device)
+    d = d / d.norm(dim=1, keepdim=True)
+    pol = torch.linalg.cross(torch.randn((n, 3), generator=gen,
+                                         device=device), d)
+    pol = pol / pol.norm(dim=1, keepdim=True)
+
+    def full(value, dtype=torch.float32):
+        return torch.full((n,), value, dtype=dtype, device=device)
+    return PhotonState(
+        pos=torch.zeros((n, 3), device=device), dir=d, pol=pol,
+        wavelength=full(400.0), t=full(0.0), weight=full(1.0),
+        flags=full(0, torch.int32), last_hit_triangle=full(-1, torch.int32),
+        evidx=full(0, torch.int32), cur_mat=full(-1, torch.int32))
+
+
+@contextlib.contextmanager
+def host_photons_before_propagation():
+    """Within the block, the number of event.Photons built before each
+    call of the Simulation's propagation driver, in a list."""
+    import chroma_tpu_torch.sim as sim_module
+    from chroma_tpu_torch import event
+    built, at_propagate = [0], []
+    init, propagate = event.Photons.__init__, sim_module.propagate
+
+    def counted_init(self, *args, **kwargs):
+        built[0] += 1
+        init(self, *args, **kwargs)
+
+    def counted_propagate(*args, **kwargs):
+        at_propagate.append(built[0])
+        return propagate(*args, **kwargs)
+    event.Photons.__init__ = counted_init
+    sim_module.propagate = counted_propagate
+    try:
+        yield at_propagate
+    finally:
+        event.Photons.__init__ = init
+        sim_module.propagate = propagate
+
+
+def timed(fn):
+    "(fn()'s result, wall seconds up to a device synchronise)."
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_geocache(quick, device, work, card):
+    """Phase 9a: the quick detector's arrays through the port's geocache
+    and back onto the card; every field present equals the build."""
+    import dataclasses
+    import torch
+    from chroma_tpu_torch.io.geocache import (load_geometry_arrays,
+                                              save_geometry_arrays)
+    path = os.path.join(work, 'quick_geocache')
+    t0 = time.perf_counter()
+    save_geometry_arrays(path, quick)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_geometry_arrays(path, lean=True)
+    t_load = time.perf_counter() - t0
+    on_card, t_move = timed(lambda: loaded.to(device))
+
+    def same(a, b, prefix):
+        "Count a's tensors, each equal to b's; static fields equal."
+        n = 0
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            name = prefix + '.' + f.name
+            if x is None:
+                continue
+            if dataclasses.is_dataclass(x):
+                n += same(x, y, name)
+            elif isinstance(x, torch.Tensor):
+                # bitwise: packed bf16 bounds include NaN words
+                assert x.device == device and x.dtype == y.dtype and \
+                    x.cpu().numpy().tobytes() == y.numpy().tobytes(), name
+                n += 1
+            else:
+                assert x == y, name
+        return n
+    nfields = same(on_card, quick, 'ga')
+    size = sum(os.path.getsize(path + ext) for ext in ('.npz', '.json'))
+    log('phase 9a: geocache of the quick detector (%s): save %.3f s (%.1f '
+        'MB with the per-triangle arrays), lean load %.3f s, to the card '
+        '%.3f s; %d tensors equal the build, per-triangle arrays dropped'
+        % (card, t_save, size / 1e6, t_load, t_move, nfields))
+    assert on_card.vertices is None and on_card.inst is not None
+    return on_card, dict(save_s=t_save, load_s=t_load, to_card_s=t_move)
+
+
+def phase_device_source(quick_geo, loaded, device, card, phase5):
+    """Phase 9b: a 2^20-photon bomb made on the card through
+    Simulation(gpu_geometry=...), with the profiler's report; 9c: the same
+    state through the gpu facade. Returns (9b's launches, 9c's launches,
+    9b's wall)."""
+    import chroma_tpu_torch
+    from chroma_tpu_torch import gpu
+    from chroma_tpu_torch.ops import visit_kernel
+    from chroma_tpu_torch.profiler import profiler
+    state = device_bomb(N_BOMB, 90, device)
+    sim = chroma_tpu_torch.Simulation(quick_geo, seed=0, device='cuda',
+                                      gpu_geometry=loaded)
+    profiler.reset()
+    profiler.enabled = True
+    visit_kernel.launches = 0
+    with host_photons_before_propagation() as built:
+        ev, wall = timed(lambda: next(sim.simulate(
+            state, run_daq=True, keep_photons_end=True,
+            max_steps=MAX_STEPS)))
+    launches_b = visit_kernel.launches
+    profiler.enabled = False
+    frac5, wall5 = phase5
+    log('phase 9b: device-resident source, %d photons made on the card, '
+        'Simulation(gpu_geometry=geocache): wall %.3f s, %.0f photons/s '
+        '(phase 5, host bomb: %.3f s, %.0f photons/s), detected %d, '
+        'visit-kernel launches %d, host Photons built before propagation '
+        '%s (%s)' % (N_BOMB, wall, N_BOMB / wall, wall5, N_BOMB / wall5,
+                     len(ev.flat_hits), launches_b, built, card))
+    assert built == [0], 'host Photons were built before propagation'
+    assert launches_b > 0 and len(ev.photons_end) == N_BOMB
+    assert ((ev.photons_end.flags & (1 << 31)) == 0).all()
+    detected_fraction_check(len(ev.flat_hits) / N_BOMB, N_BOMB, frac5,
+                            N_BOMB, 'detected fraction, device source vs '
+                            'phase 5')
+    log('  profiler report of the run:')
+    log_report()
+
+    # what the device-resident source saves, on identical physics: the same
+    # 2^20 host photons given as host Photons and as the PhotonState the
+    # host path uploads them to, same seed, in turns
+    from chroma_tpu_torch.generator import photon_bomb
+    from chroma_tpu_torch.ops.propagate import photon_state_from_host
+    np.random.seed(92)
+    host = photon_bomb(N_BOMB, 400.0, (0, 0, 0))
+    uploaded = photon_state_from_host(host, device)
+    pair = {'host Photons': [], 'PhotonState': []}
+    for name in ('host Photons', 'PhotonState', 'PhotonState',
+                 'host Photons'):
+        src = host if name == 'host Photons' else uploaded
+        psim = chroma_tpu_torch.Simulation(quick_geo, seed=4, device='cuda',
+                                           gpu_geometry=loaded)
+        visit_kernel.launches = 0
+        pev, pwall = timed(lambda: next(psim.simulate(
+            src, run_daq=True, keep_photons_end=True, max_steps=MAX_STEPS)))
+        pair[name].append((pwall, visit_kernel.launches, len(pev.flat_hits)))
+    log('  the same %d host photons, seed 4, in turns (wall s, K1 launches, '
+        'detected): %s' % (N_BOMB, json.dumps(pair)))
+    assert len({runs[1:] for runs in sum(pair.values(), [])}) == 1, \
+        'the two sources gave different histories'
+
+    visit_kernel.launches = 0
+    gg = gpu.GPUGeometry(quick_geo, arrays=loaded, device='cuda')
+    gp = gpu.GPUPhotons(state)
+    rng = gpu.get_rng_states(N_BOMB, seed=0)
+    daq = gpu.GPUDaq(gg)
+
+    def facade():
+        gp.propagate(gg, rng, max_steps=MAX_STEPS)
+        daq.begin_acquire()
+        daq.acquire(gp, rng)
+        return daq.end_acquire().get()
+    channels, fwall = timed(facade)
+    launches_c = visit_kernel.launches
+    end = gp.get()
+    log('phase 9c: GPUPhotons(state).propagate(GPUGeometry) + GPUDaq, seed '
+        '0: wall %.3f s, visit-kernel launches %d' % (fwall, launches_c))
+    for name in ('flags', 'last_hit_triangles'):
+        a, b = getattr(end, name), getattr(ev.photons_end, name)
+        bad = np.flatnonzero(a != b)
+        log('  %s: %d of %d lanes differ from 9b %s' % (
+            name, len(bad), N_BOMB, [(int(i), int(a[i]), int(b[i]))
+                                     for i in bad[:5]]))
+        assert len(bad) == 0, name
+    for name in ('hit', 't', 'q', 'flags'):
+        a, b = getattr(channels, name), getattr(ev.channels, name)
+        bad = np.flatnonzero(a != b)
+        log('  channels.%s: %d of %d channels differ from 9b %s' % (
+            name, len(bad), len(a), [int(i) for i in bad[:5]]))
+        assert len(bad) == 0, 'channels.' + name
+    assert launches_c > 0
+    return launches_b, launches_c, wall, pair
+
+
+def log_report():
+    "Log the profiler's report, indented, and reset it."
+    from chroma_tpu_torch.profiler import profiler
+    buf = io.StringIO()
+    profiler.report(buf)
+    for line in buf.getvalue().splitlines():
+        log('    ' + line)
+    profiler.reset()
+
+
+def phase_tracking(quick_geo, loaded, card):
+    """Phase 9d: photon tracking on N_TRACK photons of the quick detector,
+    checked track by track, and timed against the same photons
+    untracked. Returns (launches, tracked wall, untracked wall)."""
+    import chroma_tpu_torch
+    from chroma_tpu_torch.generator import photon_bomb
+    from chroma_tpu_torch.ops import visit_kernel
+    from chroma_tpu_torch.profiler import profiler
+    walls, events, launches = {}, {}, 0
+    for run, tracking in enumerate((False, True, False, True)):
+        sim = chroma_tpu_torch.Simulation(quick_geo, seed=3, device='cuda',
+                                          gpu_geometry=loaded,
+                                          photon_tracking=tracking)
+        np.random.seed(91)
+        bomb = photon_bomb(N_TRACK, 400.0, (0, 0, 0))
+        visit_kernel.launches = 0
+        profiler.enabled = run >= 2     # the last pair: where time goes
+        ev, wall = timed(lambda: next(sim.simulate(
+            bomb, keep_photons_end=True, max_steps=MAX_STEPS)))
+        profiler.enabled = False
+        walls.setdefault(tracking, []).append(wall)
+        if tracking:
+            launches = visit_kernel.launches
+        events[tracking] = (bomb, ev)
+    bomb, ev = events[True]
+    tracks, end = ev.photon_tracks, ev.photons_end
+    lengths = np.array([len(t) for t in tracks])
+    assert len(tracks) == N_TRACK and lengths.min() >= 1
+    assert lengths.max() <= MAX_STEPS + 1
+    for name in ('pos', 'dir', 'pol', 't', 'flags', 'last_hit_triangles'):
+        last = np.array([getattr(t, name)[-1] for t in tracks])
+        np.testing.assert_array_equal(last, getattr(end, name),
+                                      err_msg='last point ' + name)
+    # a track holds the state after each chunk (one step with tracking),
+    # as chroma_tpu's does: the first point is where the first step left
+    # the photon, on the ray from its start
+    first = np.array([t.pos[0] for t in tracks], dtype=np.float64)
+    step = first - bomb.pos
+    off_ray = np.linalg.norm(np.cross(step, bomb.dir), axis=1)
+    assert (off_ray <= 1e-4 * np.maximum(np.linalg.norm(step, axis=1),
+                                         1.0)).all()
+    t_track, t_plain = min(walls[True]), min(walls[False])
+    log('phase 9d: photon tracking, %d photons, quick detector (%s): %d '
+        'tracks, %d-%d points (mean %.2f), first points on the start rays, '
+        'last points equal photons_end; wall tracked %s s, untracked %s s '
+        '(%.2fx), visit-kernel launches tracked %d' % (
+            N_TRACK, card, len(tracks), lengths.min(), lengths.max(),
+            lengths.mean(), ' '.join('%.3f' % w for w in walls[True]),
+            ' '.join('%.3f' % w for w in walls[False]), t_track / t_plain,
+            launches))
+    log('  profiler report of the second untracked and tracked runs:')
+    log_report()
+    assert launches > 0
+    return launches, t_track, t_plain
+
+
+def run_tool(module, args, env):
+    """`python -m module args` as a subprocess through runpy (what -m
+    does), then the visit kernel's launches in that process: (stdout,
+    stderr, launches)."""
+    prelude = ('import runpy, sys; sys.argv[0] = %r; '
+               'runpy.run_module(%r, run_name="__main__", alter_sys=True); '
+               'from chroma_tpu_torch.ops import visit_kernel; '
+               'print("visit-kernel launches", visit_kernel.launches, '
+               'file=sys.stderr)' % (module, module))
+    proc = subprocess.run([sys.executable, '-c', prelude, *args], env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError('%s failed (%d):\n%s' % (module, proc.returncode,
+                                                    proc.stderr[-4000:]))
+    launches = int(re.findall(r'visit-kernel launches (\d+)',
+                              proc.stderr)[-1])
+    return proc.stdout, proc.stderr, launches
+
+
+def phase_cli(work, card):
+    """Phase 9e: the port's command-line tools as subprocesses on
+    demo.tiny(): chroma_tpu_torch.cli.sim writes two 2^20-photon events
+    with DAQ, read back with EventReader; chroma_tpu_torch.cli.profile
+    prints its report. Returns the launches of each."""
+    from chroma_tpu_torch.io import EventReader
+    env = dict(os.environ, CHROMA_CACHE_DIR=os.path.join(work, 'cache'))
+    out = os.path.join(work, 'out.chroma')
+    t0 = time.perf_counter()
+    _, err, launches_sim = run_tool(
+        'chroma_tpu_torch.cli.sim', ['@chroma_tpu_torch.demo.tiny', out,
+                                     '-n', '2', '-p', str(N_BOMB), '--daq'],
+        env)
+    wall = time.perf_counter() - t0
+    events = list(EventReader(out))
+    log('phase 9e: python -m chroma_tpu_torch.cli.sim @chroma_tpu_torch.'
+        'demo.tiny out.chroma -n 2 -p %d --daq (%s): %.1f s with the '
+        'process start, %s; visit-kernel launches %d; read back %d events, '
+        'channels hit %s, flat hits %s' % (
+            N_BOMB, card, wall,
+            re.findall(r'\d+ events in [^\n]*', err)[-1],
+            launches_sim, len(events),
+            [int(e.channels.hit.sum()) for e in events],
+            [len(e.flat_hits) for e in events]))
+    assert len(events) == 2 and launches_sim > 0
+    for e in events:
+        assert e.channels is not None and e.channels.hit.any()
+    stdout, _, launches_prof = run_tool(
+        'chroma_tpu_torch.cli.profile', ['@chroma_tpu_torch.demo.tiny',
+                                         '-p', '262144', '-n', '2'], env)
+    log('  python -m chroma_tpu_torch.cli.profile @chroma_tpu_torch.demo.'
+        'tiny -p 262144 -n 2: visit-kernel launches %d; its report:'
+        % launches_prof)
+    for line in stdout.splitlines():
+        log('    ' + line)
+    assert 'photons/s' in stdout and launches_prof > 0
+    return launches_sim, launches_prof
+
+
+def main(argv, work):
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError('CUDA is not available: chip_smoke.py needs an '
@@ -868,8 +1212,8 @@ def main(argv):
             max_err = max(max_err, compare_kernel(
                 'fixture/' + fmt, fixture_table(fmt).to(device),
                 ray_mix(n, 1, None, device)))
-    tiny_geo, tiny = detector_arrays((2000.0, 2500.0, 700.0))
-    quick_geo, quick = detector_arrays(QUICK)
+    tiny_geo, tiny = detector_arrays((2000.0, 2500.0, 700.0), work)
+    quick_geo, quick = detector_arrays(QUICK, work)
     quick_tables = detector_tables(quick_geo, quick, device)
     for name, tables, seed, radius in (
             ('tiny', detector_tables(tiny_geo, tiny, device), 2, 1800.0),
@@ -928,6 +1272,14 @@ def main(argv):
     launches7, _ = phase_lartpc(device, card)
     launches8, lk = phase_likelihood(geo6, ga6, sim6, card)
 
+    # --- 9. the user entry points
+    loaded, geocache_s = phase_geocache(quick, device, work, card)
+    launches9b, launches9c, wall9b, pair9b = phase_device_source(
+        quick_geo, loaded, device, card, (len(hits) / N_BOMB, wall))
+    launches9d, wall_track, wall_plain = phase_tracking(quick_geo, loaded,
+                                                        card)
+    launches9e, launches9e_prof = phase_cli(work, card)
+
     if profile:
         profile_run('quick', lambda: run_main_path(sim, N_BOMB, 7), card,
                     profile)
@@ -938,12 +1290,19 @@ def main(argv):
             likelihood_gun(19), nevals, nreps=nreps, ndaq=ndaq), card,
             profile)
     per_phase = {'5 quick': launches, '6 quick-optics': launches6,
-                 '7 lartpc-wires': launches7, '8 likelihood': launches8}
+                 '7 lartpc-wires': launches7, '8 likelihood': launches8,
+                 '9b device source': launches9b, '9c facade': launches9c,
+                 '9d tracking': launches9d, '9e cli sim': launches9e,
+                 '9e cli profile': launches9e_prof}
     log('visit-kernel launches per main path: %s' % json.dumps(per_phase))
     assert visit_kernel.thread_launches == thread_launches, \
         'a main path launched the first design'
 
     big, small = k1[N_TIME], k1[N_SMALL]
+    log(json.dumps({'entry_points': dict(
+        geocache_s=geocache_s, device_source_s=wall9b, phase5_s=wall,
+        same_photons_s=pair9b, tracked_s=wall_track,
+        untracked_s=wall_plain, card=card)}))
     log(json.dumps({'kernels': [{
         'name': 'visit_inst',
         'route': 'cuda',
@@ -1008,4 +1367,5 @@ def profile_run(label, fn, card, path):
         log('  ' + line)
 
 if __name__ == '__main__':
-    main(sys.argv[1:])
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_') as workdir:
+        main(sys.argv[1:], workdir)

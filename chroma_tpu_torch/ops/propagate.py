@@ -10,7 +10,10 @@ lanes and with them the draws, as in the JAX driver.
 
 The JAX package's fused static schedule, probe, pilot and tuners exist to
 keep XLA shapes static and host syncs few; eager PyTorch needs neither, so
-they are not ported.
+they are not ported. The profiler's regions and counters carry the JAX
+driver's names (propagate.chunk[n=...], propagate.steps,
+propagate.lane_steps, propagate.alive_after_chunk) and read only the alive
+count the driver already fetches at each chunk.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from chroma_tpu_torch import event
 from chroma_tpu_torch.log import logger
 from chroma_tpu_torch.ops.photon import PhotonState, i32, propagate_step
 from chroma_tpu_torch.ops.sample import DrawPool, make_generator
+from chroma_tpu_torch.profiler import profiler
 
 MIN_BATCH = 256
 CHUNK_GROWTH = 2
@@ -118,17 +122,23 @@ def _write_back(final, orig_idx, current):
 
 
 def propagate(photons, geometry, seed, max_steps=100, step_chunk='auto',
-              use_weights=False, scatter_first=0):
+              use_weights=False, scatter_first=0, track_steps=False):
     """Propagate a PhotonState to termination or `max_steps`; returns the
     final PhotonState in the input's lane order.
 
     step_chunk='auto' compacts after step 1 and then doubles the chunk (up
     to CHUNK_CAP steps) at every boundary; an int fixes it. use_weights
     and scatter_first select the weighted transport of the likelihood
-    biasing modes (see ops.photon.propagate_to_boundary)."""
+    biasing modes (see ops.photon.propagate_to_boundary).
+
+    track_steps=True returns (final, tracking): after every chunk, one
+    host snapshot (orig_idx numpy array, PhotonState of CPU tensors) of
+    the chunk's lanes, taken after the chunk's steps as the JAX driver
+    takes it (chroma_tpu/ops/propagate.py:1262-1264)."""
     n = len(photons)
     orig_idx = torch.arange(n, device=photons.pos.device)
     final = photons.map(torch.clone)
+    tracking = []
     step = 0
     current = photons
     chunk = 1 if step_chunk == 'auto' else int(step_chunk)
@@ -143,20 +153,32 @@ def propagate(photons, geometry, seed, max_steps=100, step_chunk='auto',
             if n_alive <= max(len(current) // 16, MIN_BATCH // 4):
                 nsteps = max_steps - step
             bucket = _next_pow2(n_alive)
+        else:
+            bucket = n
+        with profiler.region('propagate.chunk[n=%d]'
+                             % min(bucket, len(current))):
             if bucket < len(current):
                 _write_back(final, orig_idx, current)
                 _, perm = _ps_compact_perm(current.alive)
                 sel = perm[:bucket]
                 current = current.map(lambda a: a[sel])
                 orig_idx = orig_idx[sel]
-        current, _, n_alive = run_steps(current, geometry, seed, step,
-                                        nsteps, use_weights=use_weights,
-                                        scatter_first=scatter_first)
+            current, _, n_alive = run_steps(current, geometry, seed, step,
+                                            nsteps, use_weights=use_weights,
+                                            scatter_first=scatter_first)
         step += nsteps
+        profiler.count('propagate.steps', nsteps)
+        profiler.count('propagate.lane_steps', nsteps * len(current))
+        profiler.count('propagate.alive_after_chunk', n_alive)
+        if track_steps:
+            tracking.append((orig_idx.cpu().numpy().copy(), current.map(
+                lambda a: a.to('cpu', copy=True))))
         if n_alive == 0:
             break
 
     _write_back(final, orig_idx, current)
     if bool(((final.flags & i32(event.NAN_ABORT)) != 0).any()):
         logger.warning('ABORTED PHOTONS')
+    if track_steps:
+        return final, tracking
     return final

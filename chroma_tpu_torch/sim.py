@@ -3,12 +3,14 @@ chroma_tpu.sim.Simulation).
 
 Owns the device geometry, batches incoming events to photons_per_batch,
 propagates each batch, extracts flat hits with channels and runs the DAQ,
-and yields the port's own chroma_tpu_torch.event.Event objects. It also
-serves the PDF API that chroma_tpu_torch.likelihood.Likelihood drives
-(create_pdf,
-eval_pdf, setup_kernel, eval_kernel). Every random stream comes from a
-torch.Generator seeded from (seed, propagation counter, ...): each
-simulate batch and each PDF-path propagation takes the next count.
+and yields the port's own chroma_tpu_torch.event.Event objects. Sources
+are host Photons, Vertices, Events, or device-resident PhotonStates, which
+stay on the device from start to end. With photon_tracking=True every
+step is a chunk and each event gets its photons' tracks. It also serves
+the PDF API that chroma_tpu_torch.likelihood.Likelihood drives
+(create_pdf, eval_pdf, setup_kernel, eval_kernel). Every random stream
+comes from a torch.Generator seeded from (seed, propagation counter, ...):
+each simulate batch and each PDF-path propagation takes the next count.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from chroma_tpu_torch.ops.propagate import (propagate,
                                             photon_state_to_host)
 from chroma_tpu_torch.ops.sample import make_generator
 from chroma_tpu_torch.ops.types import build_geometry_arrays
+from chroma_tpu_torch.profiler import profiler
 
 DAQ_SITE = 7000  # generator id of event i's DAQ draws: (seed, batch, 7000+i)
 PDF_MAX_STEPS = 100  # steps of each PDF-path propagation, as in chroma_tpu
@@ -42,8 +45,8 @@ def pick_seed():
 def _as_geometry(obj):
     """A flattened Geometry from a Detector/Geometry/Solid/Mesh or a
     callable returning one, from the port's own host modules
-    (chroma_tpu.loader.create_geometry_from_obj without the classic BVH,
-    which the port does not use)."""
+    (loader.create_geometry_from_obj without the classic BVH, which the
+    device path does not use)."""
     if callable(obj):
         obj = obj()
     if isinstance(obj, (Detector, Geometry)):
@@ -62,18 +65,33 @@ def _as_geometry(obj):
 
 
 class Simulation:
-    def __init__(self, detector, seed=None, device='cuda', wavelengths=None,
-                 times=None, step_chunk='auto', geometry_arrays=None):
+    def __init__(self, detector, seed=None, photon_tracking=False,
+                 wavelengths=None, times=None, mesh=None, n_devices=None,
+                 device='cuda', gpu_geometry=None, geometry_arrays=None,
+                 step_chunk='auto', **compat_kwargs):
         """Create a simulation around a Geometry/Detector on `device`.
 
-        geometry_arrays: prebuilt chroma_tpu_torch GeometryArrays (e.g.
+        gpu_geometry (chroma_tpu.Simulation's name) or geometry_arrays:
+        prebuilt chroma_tpu_torch GeometryArrays (from the geocache, or
         ops.types.from_jax_arrays of a JAX build), which skips the host
-        build. Raises RuntimeError for a CUDA device when none is
-        present."""
+        build. step_chunk: steps per chunk between compactions ('auto' or
+        an int). photon_tracking: record every photon's state after every
+        step in Event.photon_tracks. The reference-only options
+        (cuda_device, nthreads_per_block, max_blocks) are absorbed in
+        compat_kwargs so call sites port unchanged. mesh / n_devices
+        (multi-chip) are not ported yet. Raises RuntimeError for a CUDA
+        device when none is present."""
+        if mesh is not None or n_devices is not None:
+            raise NotImplementedError(
+                'mesh / n_devices: multi-GPU propagation is not ported yet '
+                '(ROADMAP.md item 15)')
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('device %r requested but CUDA is not '
                                'available' % str(device))
+        if geometry_arrays is None:
+            geometry_arrays = gpu_geometry
+        self.step_chunk = step_chunk
         if geometry_arrays is None:
             self.detector = _as_geometry(detector)
             geometry_arrays = build_geometry_arrays(self.detector,
@@ -81,8 +99,9 @@ class Simulation:
         else:
             self.detector = detector
         self.gpu_geometry = geometry_arrays.to(self.device)
+        self.photon_tracking = photon_tracking
         self.seed = pick_seed() if seed is None else int(seed)
-        self.step_chunk = step_chunk
+        np.random.seed(self.seed)
         self._batch = 0
         self._kernel = None
         self._pdf = None
@@ -100,15 +119,16 @@ class Simulation:
     def simulate(self, iterable, keep_photons_beg=False,
                  keep_photons_end=False, keep_hits=True, keep_flat_hits=True,
                  run_daq=False, max_steps=1000, photons_per_batch=1000000):
-        """Simulate an iterable of Photons, Events or Vertices, yielding
-        finished Events. Events are grouped into >= photons_per_batch
-        batches (reference: sim.py:225-278)."""
-        if isinstance(iterable, event.Photons):
+        """Simulate an iterable of Photons, PhotonStates, Events or
+        Vertices, yielding finished Events. Events are grouped into >=
+        photons_per_batch batches (reference: sim.py:225-278)."""
+        if isinstance(iterable, (event.Photons, PhotonState)):
             first_element, iterable = iterable, [iterable]
         else:
             first_element, iterable = itertoolset.peek(iterable)
 
-        if isinstance(first_element, event.Photons):
+        if isinstance(first_element, (event.Photons, PhotonState)):
+            # PhotonState inputs stay device-resident end to end
             iterable = (event.Event(photons_beg=x) for x in iterable)
         elif isinstance(first_element, event.Vertex):
             from chroma_tpu_torch.generator import vertex_gun_to_events
@@ -122,7 +142,8 @@ class Simulation:
         batch_events = []
         for ev in iterable:
             ev.nphotons = len(ev.photons_beg)
-            ev.photons_beg.evidx[:] = np.uint32(len(batch_events))
+            if isinstance(ev.photons_beg, event.Photons):
+                ev.photons_beg.evidx[:] = np.uint32(len(batch_events))
             nphotons += ev.nphotons
             batch_events.append(ev)
             if nphotons >= photons_per_batch:
@@ -132,35 +153,65 @@ class Simulation:
         if batch_events:
             yield from self._simulate_batch(batch_events, **opts)
 
+    def _batch_state(self, sources):
+        """One device PhotonState of a batch's sources. Host Photons are
+        joined on the host and uploaded once; when any source is a
+        PhotonState, each source's lanes get its event index and the batch
+        is joined on the device (a single source keeps its evidx)."""
+        if not any(isinstance(src, PhotonState) for src in sources):
+            batch = event.Photons.join(sources) if len(sources) > 1 \
+                else sources[0]
+            return photon_state_from_host(batch, self.device)
+        from chroma_tpu_torch.gpu import join_states
+        states = [self._source_state(src) for src in sources]
+        if len(states) > 1:
+            return join_states([st.replace(evidx=torch.full_like(st.evidx, i))
+                                for i, st in enumerate(states)])
+        return states[0]
+
     def _simulate_batch(self, batch_events, keep_photons_beg, keep_photons_end,
                         keep_hits, keep_flat_hits, run_daq, max_steps):
         "Propagate one batch of events and attach results."
         sources = [ev.photons_beg for ev in batch_events]
         bounds = np.cumsum([0] + [len(src) for src in sources])
-        batch = event.Photons.join(sources) if len(sources) > 1 \
-            else sources[0]
-        state = photon_state_from_host(batch, self.device)
+        with profiler.region('sim.upload'):
+            state = self._batch_state(sources)
         batch_seed = self._next_seed()
 
-        result = propagate(state, self.gpu_geometry, batch_seed,
-                           max_steps=max_steps, step_chunk=self.step_chunk)
+        tracking = None
+        with profiler.region('sim.propagate'):
+            result = propagate(state, self.gpu_geometry, batch_seed,
+                               max_steps=max_steps,
+                               step_chunk=1 if self.photon_tracking
+                               else self.step_chunk,
+                               track_steps=self.photon_tracking)
+        if self.photon_tracking:
+            result, tracking = result
 
         want_hits = self.has_channels and (keep_hits or keep_flat_hits)
-        batch_hits = daq_ops.extract_flat_hits(result, self.gpu_geometry) \
-            if want_hits else None
+        batch_hits = None
+        if want_hits:
+            with profiler.region('sim.hit_extraction'):
+                batch_hits = daq_ops.extract_flat_hits(result,
+                                                       self.gpu_geometry)
         photons_end = None
         if keep_photons_end:
-            channel = None
-            if self.has_channels:
-                channel = np.maximum(daq_ops.photon_channels_device(
-                    result, self.gpu_geometry).cpu().numpy(),
-                    0).astype(np.uint32)
-            photons_end = photon_state_to_host(result, channel=channel)
+            with profiler.region('sim.readback'):
+                channel = None
+                if self.has_channels:
+                    channel = np.maximum(daq_ops.photon_channels_device(
+                        result, self.gpu_geometry).cpu().numpy(),
+                        0).astype(np.uint32)
+                photons_end = photon_state_to_host(result, channel=channel)
 
         for i, ev in enumerate(batch_events):
             start, end = int(bounds[i]), int(bounds[i + 1])
             if not keep_photons_beg:
                 ev.photons_beg = None
+            if tracking is not None:
+                with profiler.region('sim.tracks'):
+                    ev.photon_tracks = self._regroup_tracks(tracking, start,
+                                                            end)
             if keep_photons_end:
                 ev.photons_end = photons_end[start:end]
             if want_hits:
@@ -176,12 +227,39 @@ class Simulation:
                 if keep_flat_hits:
                     ev.flat_hits = ev_hits
             if self.has_channels and run_daq:
-                ev_state = result.map(lambda a: a[start:end])
-                gen = make_generator(self.device, *batch_seed,
-                                     DAQ_SITE + i)
-                arrays = daq_ops.run_daq(ev_state, self.gpu_geometry, gen)
-                ev.channels = daq_ops.channels_to_host(arrays)
+                with profiler.region('sim.daq'):
+                    ev_state = result.map(lambda a: a[start:end])
+                    gen = make_generator(self.device, *batch_seed,
+                                         DAQ_SITE + i)
+                    arrays = daq_ops.run_daq(ev_state, self.gpu_geometry,
+                                             gen)
+                    ev.channels = daq_ops.channels_to_host(arrays)
             yield ev
+
+    @staticmethod
+    def _regroup_tracks(tracking, start, end):
+        """Per-photon tracks of lanes [start, end) from the driver's chunk
+        snapshots: photon j's track holds, in chunk order, its state in
+        every snapshot that has it (chroma_tpu/sim.py:294-308, grouped
+        with one stable sort)."""
+        ids, parts = [], []
+        for orig_idx, snapshot in tracking:
+            mask = (orig_idx >= start) & (orig_idx < end)
+            if mask.any():
+                ids.append(orig_idx[mask] - start)
+                keep = torch.from_numpy(mask)
+                parts.append(photon_state_to_host(
+                    snapshot.map(lambda a: a[keep])))
+        tracks = [event.Photons() for _ in range(end - start)]
+        if not parts:
+            return tracks
+        ids = np.concatenate(ids)
+        order = np.argsort(ids, kind='stable')
+        points = event.Photons.join(parts)[order]
+        bounds = np.r_[0, np.cumsum(np.bincount(ids, minlength=end - start))]
+        for pid in np.flatnonzero(bounds[1:] > bounds[:-1]):
+            tracks[pid] = points[bounds[pid]:bounds[pid + 1]]
+        return tracks
 
     # ------------------------------------------------------------------
     # PDF evaluation API (used by chroma_tpu_torch.likelihood)
@@ -253,10 +331,11 @@ class Simulation:
 
     def _source_state(self, photons):
         """An event's photons on the device: uploaded once, so the nreps
-        propagations of a likelihood loop reuse them (a PhotonState passes
-        through)."""
+        propagations of a likelihood loop reuse them. A PhotonState passes
+        through, with its medium set to unknown if it has none."""
         if isinstance(photons, PhotonState):
-            return photons
+            from chroma_tpu_torch.gpu import _with_cur_mat
+            return _with_cur_mat(photons)
         return photon_state_from_host(photons, self.device)
 
     def _propagate_daq(self, state, ndaq):

@@ -7,7 +7,6 @@ bit-for-bit the JAX output: the instanced rows in every bounds format, and
 every GeometryArrays field, directly and through from_jax_arrays. Each
 side builds the geometry from its own package, with the same function and
 arguments."""
-import dataclasses
 from importlib import import_module
 
 import numpy as np
@@ -19,36 +18,12 @@ from chroma_tpu.ops import types as jtypes
 from chroma_tpu_torch.bvh import wide as twide
 from chroma_tpu_torch.ops import types as ttypes
 
+from test_torch_host import (_assert_bitwise, _assert_struct,  # noqa: F401
+                             same_native_kit)
+
 torch.set_num_threads(2)
 
 FORMATS = {'f32': (0, 'f32'), 'bf16': (32, 'bf16'), 'q8': (32, 'q8')}
-
-
-def _bits(a):
-    "Host array with u32 read as its int32 bit pattern."
-    a = np.asarray(a)
-    return a.view(np.int32) if a.dtype == np.uint32 else a
-
-
-def _assert_bitwise(jax_value, torch_value, name):
-    a = _bits(jax_value)
-    b = torch_value.numpy()
-    assert a.dtype == b.dtype and a.shape == b.shape, \
-        '%s: %s%s vs %s%s' % (name, a.dtype, a.shape, b.dtype, b.shape)
-    assert a.tobytes() == b.tobytes(), '%s differs' % name
-
-
-def _assert_struct(jax_struct, torch_struct, prefix):
-    for f in dataclasses.fields(torch_struct):
-        tv = getattr(torch_struct, f.name)
-        jv = getattr(jax_struct, f.name)
-        name = prefix + '.' + f.name
-        if isinstance(tv, torch.Tensor):
-            _assert_bitwise(jv, tv, name)
-        elif dataclasses.is_dataclass(tv):
-            _assert_struct(jv, tv, name)
-        else:
-            assert tv == jv, name
 
 
 def _fixture_instances(pkg, types):

@@ -11,11 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from chroma_tpu_torch.geometry import Geometry, Solid
+import chroma_tpu_torch
+from chroma_tpu_torch import event, gpu
+from chroma_tpu_torch.detector import Detector
+from chroma_tpu_torch.geometry import Geometry, Material, Solid, Surface
+from chroma_tpu_torch.geometry import vacuum
 from chroma_tpu_torch.demo.optics import water, glass
 from chroma_tpu_torch.make import box, sphere
 from chroma_tpu_torch.bvh.wide import build_instanced_bvh
 from chroma_tpu_torch.ops import mesh_wide, visit_kernel
+from chroma_tpu_torch.ops.photon import PhotonState
 from chroma_tpu_torch.ops.types import pack_material_codes
 
 torch.set_num_threads(2)
@@ -142,3 +147,73 @@ def test_visit_kernel_rejects_bad_input(cuda):
         visit_kernel.traverse(tw, o, o.double())
     with pytest.raises(ValueError):     # no 8-lane groups
         visit_kernel.launch(tw, o, o, group=8)
+
+
+def _device_bomb(n, seed, device):
+    """An isotropic 400 nm bomb at the origin made on `device` from an
+    explicit generator: a PhotonState that never was host Photons."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d = torch.randn((n, 3), generator=gen, device=device)
+    d = d / d.norm(dim=1, keepdim=True)
+    pol = torch.linalg.cross(torch.randn((n, 3), generator=gen,
+                                         device=device), d)
+    pol = pol / pol.norm(dim=1, keepdim=True)
+    return PhotonState(
+        pos=torch.zeros((n, 3), device=device), dir=d, pol=pol,
+        wavelength=torch.full((n,), 400.0, device=device),
+        t=torch.zeros(n, device=device), weight=torch.ones(n, device=device),
+        flags=torch.zeros(n, dtype=torch.int32, device=device),
+        last_hit_triangle=torch.full((n,), -1, dtype=torch.int32,
+                                     device=device),
+        evidx=torch.zeros(n, dtype=torch.int32, device=device),
+        cur_mat=torch.full((n,), -1, dtype=torch.int32, device=device))
+
+
+@pytest.mark.cuda
+def test_device_source_simulation_and_facade(cuda):
+    """A PhotonState made on the card goes through Simulation and through
+    GPUPhotons.propagate + GPUDaq with the same seed: equal end states,
+    hits and channels, and both launch the visit kernel."""
+    mat = Material('water')
+    for name, value in (('refractive_index', 1.33),
+                        ('absorption_length', 1e5),
+                        ('scattering_length', 1e5)):
+        mat.set(name, value)
+    pc = Surface('pc')
+    pc.set('detect', 0.5)
+    pc.set('absorb', 0.5)
+    det = Detector(vacuum)
+    det.add_pmt(Solid(box(1000.0, 1000, 1000), mat, vacuum, surface=pc))
+    det.set_time_dist_gaussian(1.2, -6.0, 6.0)
+    det.set_charge_dist_gaussian(1.0, 0.1, 0.5, 1.5)
+    state = _device_bomb(20000, 3, cuda)
+
+    before = visit_kernel.launches
+    ev = next(chroma_tpu_torch.Simulation(det, seed=5, device=cuda)
+              .simulate(state, keep_photons_end=True, run_daq=True,
+                        max_steps=100))
+    assert visit_kernel.launches > before
+    before = visit_kernel.launches
+    gg = gpu.GPUDetector(det, device=cuda)
+    gp = gpu.GPUPhotons(state)
+    rng = gpu.get_rng_states(len(state), seed=5)
+    gp.propagate(gg, rng, max_steps=100)
+    assert visit_kernel.launches > before
+    end = gp.get()
+    for name in ('pos', 'dir', 'pol', 't', 'flags', 'last_hit_triangles'):
+        np.testing.assert_array_equal(getattr(end, name),
+                                      getattr(ev.photons_end, name),
+                                      err_msg=name)
+    hits = gp.get_flat_hits(gg)
+    assert 0 < len(hits) == len(ev.flat_hits)
+    np.testing.assert_array_equal(hits.channel, ev.flat_hits.channel)
+    daq = gpu.GPUDaq(gg)
+    daq.begin_acquire()
+    daq.acquire(gp, rng)
+    channels = daq.end_acquire().get()
+    for name in ('hit', 't', 'q', 'flags'):
+        np.testing.assert_array_equal(getattr(channels, name),
+                                      getattr(ev.channels, name),
+                                      err_msg=name)
+    assert (ev.flat_hits.flags & event.SURFACE_DETECT).all()

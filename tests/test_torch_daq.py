@@ -19,6 +19,8 @@ from chroma_tpu_torch.ops import daq as tdaq
 from chroma_tpu_torch.ops import propagate as tprop
 from chroma_tpu_torch.ops import types as ttypes
 
+from test_torch_host import same_native_kit  # noqa: F401
+
 torch.set_num_threads(2)
 
 N = 20000

@@ -7,7 +7,19 @@ compute what the originals do: the same geometry built by each package
 gives bit-equal GeometryArrays, photon_bomb under one numpy seed gives
 equal photons, and both Likelihood classes give the same NLL on one port
 Simulation. `host(pkg)` is how every tests/test_torch_*.py builds each
-side from its own package."""
+side from its own package.
+
+Both packages build geometry through a native kit (csrc/geometry_kit.cpp)
+with a numpy fallback, and the two branches order deduplicated vertices
+differently. `same_native_kit` puts both sides on the same branch for
+every port test module that builds a geometry in each package: the JAX
+kit is built by `make` in place in every process, so a process that loads
+it half-written, or whose make fails, keeps the numpy fallback, while the
+port's kit loads. The fallback itself is held bit for bit by the
+`*_numpy_kit` cases."""
+import dataclasses
+import fcntl
+import os
 from importlib import import_module
 from types import SimpleNamespace
 
@@ -15,11 +27,11 @@ import numpy as np
 import pytest
 import torch
 
+from chroma_tpu import native as jnative
 from chroma_tpu.ops import types as jtypes
 import chroma_tpu_torch
+from chroma_tpu_torch import native as tnative
 from chroma_tpu_torch.ops import types as ttypes
-
-from test_torch_bvh import _assert_struct
 
 torch.set_num_threads(2)
 
@@ -44,6 +56,63 @@ def host(pkg):
 
 
 J, T = host(JAX_PKG), host(PORT_PKG)
+
+
+def same_kit(mp, kit):
+    """Put both packages' native geometry kits on one branch while the
+    MonkeyPatch `mp` is active: kit 'numpy' forces both onto the numpy
+    fallback; kit 'native' loads both libraries, the JAX one under a file
+    lock in build/ and once more if its first load failed, and forces both
+    onto the fallback if either library is still missing."""
+    if kit == 'native':
+        os.makedirs(tnative.BUILD_DIR, exist_ok=True)
+        lock_path = os.path.join(tnative.BUILD_DIR, 'native_kit.lock')
+        with open(lock_path, 'w') as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if jnative._load() is None:
+                jnative._tried = False
+                jnative._load()
+            tnative._load()
+    if kit == 'numpy' or jnative._lib is None or tnative._lib is None:
+        for mod in (jnative, tnative):
+            mp.setattr(mod, '_lib', None)
+            mp.setattr(mod, '_tried', True)
+
+
+@pytest.fixture(scope='module', autouse=True)
+def same_native_kit():
+    """Both packages on the same native-kit branch for the whole module;
+    port test modules that build a geometry in each package import it."""
+    with pytest.MonkeyPatch.context() as mp:
+        same_kit(mp, 'native')
+        yield
+
+
+def _bits(a):
+    "Host array with u32 read as its int32 bit pattern."
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def _assert_bitwise(jax_value, torch_value, name):
+    a = _bits(jax_value)
+    b = torch_value.numpy()
+    assert a.dtype == b.dtype and a.shape == b.shape, \
+        '%s: %s%s vs %s%s' % (name, a.dtype, a.shape, b.dtype, b.shape)
+    assert a.tobytes() == b.tobytes(), '%s differs' % name
+
+
+def _assert_struct(jax_struct, torch_struct, prefix):
+    for f in dataclasses.fields(torch_struct):
+        tv = getattr(torch_struct, f.name)
+        jv = getattr(jax_struct, f.name)
+        name = prefix + '.' + f.name
+        if isinstance(tv, torch.Tensor):
+            _assert_bitwise(jv, tv, name)
+        elif dataclasses.is_dataclass(tv):
+            _assert_struct(jv, tv, name)
+        else:
+            assert tv == jv, name
 
 
 def test_host_namespaces_are_separate():
@@ -78,6 +147,46 @@ def test_geometry_arrays_bitwise(build):
     ga_j = jtypes.build_geometry_arrays(build(J))
     ga_t = ttypes.build_geometry_arrays(build(T))
     _assert_struct(ga_j, ga_t, 'ga')
+
+
+def _fixture_rows(fmt):
+    "The visit-kernel fixture geometry's instanced table in format fmt."
+    from test_torch_bvh import FORMATS, _fixture_instances
+    from chroma_tpu.bvh import wide as jwide
+    from chroma_tpu_torch.bvh import wide as twide
+    pf, bf = FORMATS[fmt]
+    out = []
+    for pkg, types, wide in (('chroma_tpu', jtypes, jwide),
+                             ('chroma_tpu_torch', ttypes, twide)):
+        inst, codes = _fixture_instances(pkg, types)
+        out.append(wide.build_instanced_bvh(
+            inst, material_codes=codes, packed_fanout=pf,
+            bounds_fmt=bf).rows)
+    return out
+
+
+@pytest.mark.parametrize('case', ['tiny', 'all_models', 'rows_f32',
+                                  'rows_bf16', 'rows_q8'])
+def test_builders_bitwise_numpy_kit(monkeypatch, case):
+    """The native kit's numpy fallback, forced in both packages, builds the
+    same bits in each: demo.tiny() and the all-models detector's
+    GeometryArrays, and the fixture geometry's instanced table in every
+    bounds format (test_geometry_arrays_bitwise and
+    test_torch_bvh.test_instanced_rows_bitwise run on the native kit)."""
+    same_kit(monkeypatch, 'numpy')
+    assert not jnative.available() and not tnative.available()
+    if case.startswith('rows_'):
+        j_rows, t_rows = _fixture_rows(case[5:])
+        _assert_bitwise(j_rows, t_rows, 'rows')
+    else:
+        build = {'tiny': _tiny, 'all_models': _all_models}[case]
+        _assert_struct(jtypes.build_geometry_arrays(build(J)),
+                       ttypes.build_geometry_arrays(build(T)), 'ga')
+
+
+def test_native_kit_shared():
+    "Both packages' builders run on the same native-kit branch here."
+    assert (jnative._lib is None) == (tnative._lib is None)
 
 
 @pytest.mark.parametrize('n,wavelength,pos', [(1000, 400.0, (0, 0, 0)),

@@ -32,12 +32,23 @@ def _imported(tree):
 
 
 def test_scan_covers_the_port():
-    "The scan sees the host copies, the ops and the kernel wrapper."
+    """The scan sees the host copies, the ops, the kernel wrapper and the
+    entry points (loader, caches, io, facade, profiler, services, CLI)."""
     sources = _sources()
     for name in ('event.py', 'geometry.py', 'likelihood.py', 'native.py',
                  os.path.join('demo', 'optics.py'),
                  os.path.join('ops', 'visit_kernel.py'),
-                 os.path.join('bvh', 'build.py')):
+                 os.path.join('bvh', 'build.py'),
+                 os.path.join('bvh', 'bvh.py'), 'loader.py', 'cache.py',
+                 'stl.py', 'gpu.py', 'profiler.py',
+                 os.path.join('io', 'geocache.py'),
+                 os.path.join('io', 'npz.py'), os.path.join('io', 'root.py'),
+                 os.path.join('server', 'photon_server.py'),
+                 os.path.join('server', 'rat_server.py'),
+                 os.path.join('cli', 'sim.py'), os.path.join('cli', 'geo.py'),
+                 os.path.join('cli', 'profile.py'),
+                 os.path.join('cli', 'server.py'),
+                 os.path.join('cli', 'server_rat.py')):
         assert os.path.join('chroma_tpu_torch', name) in sources, name
 
 

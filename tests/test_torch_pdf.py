@@ -16,7 +16,7 @@ import chroma_tpu_torch
 from chroma_tpu_torch.ops import daq as tdaq
 from chroma_tpu_torch.ops import pdf as tpdf
 
-from test_torch_host import J, T, _box_detector
+from test_torch_host import J, T, _box_detector, same_native_kit  # noqa: F401
 
 torch.set_num_threads(2)
 

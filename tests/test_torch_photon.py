@@ -21,7 +21,7 @@ from chroma_tpu_torch.ops import photon
 from chroma_tpu_torch.ops import types as ttypes
 from chroma_tpu_torch.ops.sample import DrawPool
 
-from test_torch_host import J, T
+from test_torch_host import J, T, same_native_kit  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -20,7 +20,7 @@ from chroma_tpu.ops.sample import make_key
 from chroma_tpu_torch.ops import propagate as tprop
 from chroma_tpu_torch.ops import types as ttypes
 
-from test_torch_host import J, T
+from test_torch_host import J, T, same_native_kit  # noqa: F401
 from test_torch_photon import assert_states_match
 
 torch.set_num_threads(2)

@@ -22,7 +22,7 @@ import torch
 from chroma_tpu.ops.types import build_geometry_arrays
 import chroma_tpu_torch
 
-from test_torch_host import J, T, _box_detector
+from test_torch_host import J, T, _box_detector, same_native_kit  # noqa: F401
 
 torch.set_num_threads(2)
 

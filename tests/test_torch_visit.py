@@ -23,6 +23,8 @@ from chroma_tpu_torch.bvh import wide as twide
 from chroma_tpu_torch.ops import mesh_wide, visit_kernel
 from chroma_tpu_torch.ops import types as ttypes
 
+from test_torch_host import same_native_kit  # noqa: F401
+
 torch.set_num_threads(2)
 
 # (packed_fanout, bounds_fmt) per format: f32 tables use the fanout-16 base

@@ -19,7 +19,7 @@ from chroma_tpu_torch.ops.propagate import photon_state_from_host, propagate
 from chroma_tpu_torch.ops.wireplane import (candidate_windows,
                                             intersect_wireplanes)
 
-from test_torch_host import J, T
+from test_torch_host import J, T, same_native_kit  # noqa: F401
 
 torch.set_num_threads(2)
 
