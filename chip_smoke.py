@@ -3,8 +3,12 @@
 
     python3 chip_smoke.py             # from the repository root
     python3 chip_smoke.py --profile FILE   # also profile the quick,
-                                          # quick-optics and likelihood
-                                          # paths, full tables to FILE
+                                          # quick-optics, likelihood and
+                                          # render paths, full tables to
+                                          # FILE
+    python3 chip_smoke.py --out DIR        # keep phase 10's PNG frames in
+                                          # DIR (else they go with the
+                                          # scratch files)
 
 Phases, each printing its results; any failure raises and the exit code is
 non-zero:
@@ -68,9 +72,35 @@ non-zero:
         photons untracked;
      e. the command-line tools: chroma_tpu_torch.cli.sim (2 events of 2^20
         photons on demo.tiny() with --daq, read back with EventReader) and
-        chroma_tpu_torch.cli.profile, each as a subprocess.
+        chroma_tpu_torch.cli.profile, each as a subprocess;
+ 10. the renderer and the viewer on the quick detector's dense arrays:
+     a. K1 on camera rays: the 1920 x 1080 rays of the default pose, first
+        layer (no mask) and third layer (last hits excluded, rays still
+        active), kernel against plain, all six outputs; K1 and the plain
+        version timed on the first layer, with visits by kind and bound;
+     b. ops.render.render and distances, card against CPU, 256 x 144 rays
+        of the same pose (the frames' field of view) at alpha_depth 10: at
+        least 99.9% of the pixels equal, every channel within 1 count,
+        distances to rtol 1e-5;
+     c. frames at full width: camera.snapshot, then 5 frames of the same
+        rays turned by Rays.rotate_around_point, wall per frame, K1
+        launches per frame, the share of pixels that show geometry (held
+        to the CPU render's within 2%), one frame written as a PNG;
+     d. the viewer's modes, no display, through Camera._frame and
+        EventViewer: anaglyph, BVH layer 1 of demo.tiny(), a frame
+        recolored by phase 5's channels, the track overlay of a
+        10^4-photon tracked event, GPURays against Rays, and the photon
+        map (4 batches of 100,000 photons at 640 x 480): once through the
+        quick detector from its centre, for the launches and the wall, and
+        once in a matte room, for a lit image -- hybrid_render lights a
+        pixel when the first triangle its ray meets holds a parked photon,
+        and a PMT's first surface is its glass, which parks none;
+     e. the tools: chroma_tpu_torch.cli.cam -o as a subprocess on
+        demo.tiny(), and chroma_tpu_torch.cli.bvh create, stat and sort;
+     f. GDML: a document with a boolean solid through GDMLLoader as a
+        Detector, a 65,536-photon bomb with run_daq=True and one frame.
 
-The kernel's launches are counted on each main path (phases 5 to 9, reset
+The kernel's launches are counted on each main path (phases 5 to 10, reset
 just before and read just after) and printed per phase; the first design is
 launched on none of them. The last lines are a JSON object describing the
 kernels, and {"ok": true, "device": {...}}. Needs CUDA and the repository
@@ -101,6 +131,13 @@ GUN_MEV = 10.0      # phase 8's electron: ~10^4 photons (1000 per MeV)
 LIKELIHOOD = (4, 4, 50)             # phase 8's nevals, nreps, ndaq
 N_TRACK = 10000     # phase 9d's tracked photons
 MAX_STEPS = 100     # steps of every bomb, as in bench.py
+RENDER_SIZE = (1920, 1080)          # phase 10's frames
+CHECK_SIZE = (256, 144)             # phase 10b's card-against-CPU render:
+                                    # the frames' field of view
+VIEWER_SIZE = (640, 480)            # phase 10d's frames
+ALPHA_DEPTH = 10
+N_FRAMES = 5
+CLI_CAM_SIZE = (800, 600)
 # (packed_fanout, bounds_fmt) of each table format: f32 at fanout 16, bf16
 # and q8 at fanout 32
 FORMATS = {'f32': (0, 'f32'), 'bf16': (32, 'bf16'), 'q8': (32, 'q8')}
@@ -1111,8 +1148,11 @@ def run_tool(module, args, env):
     """`python -m module args` as a subprocess through runpy (what -m
     does), then the visit kernel's launches in that process: (stdout,
     stderr, launches)."""
-    prelude = ('import runpy, sys; sys.argv[0] = %r; '
+    prelude = ('import runpy, sys, time; sys.argv[0] = %r; '
+               't0 = time.perf_counter(); '
                'runpy.run_module(%r, run_name="__main__", alter_sys=True); '
+               'print("tool seconds %%.3f" %% (time.perf_counter() - t0), '
+               'file=sys.stderr); '
                'from chroma_tpu_torch.ops import visit_kernel; '
                'print("visit-kernel launches", visit_kernel.launches, '
                'file=sys.stderr)' % (module, module))
@@ -1166,6 +1206,505 @@ def phase_cli(work, card):
     return launches_sim, launches_prof
 
 
+
+GDML_DOC = """<?xml version="1.0"?>
+<gdml>
+  <define>
+    <position name="pmt_pos" unit="mm" x="0" y="0" z="400"/>
+    <rotation name="pmt_rot" unit="deg" x="0" y="0" z="45"/>
+    <position name="slab_pos" unit="mm" x="0" y="0" z="-500"/>
+  </define>
+  <materials/>
+  <solids>
+    <box name="world_box" lunit="mm" x="5000" y="5000" z="5000"/>
+    <tube name="tank" lunit="mm" rmin="0" rmax="1000" z="2000"
+          deltaphi="6.283185307179586"/>
+    <orb name="pmt_ball" lunit="mm" r="100"/>
+    <box name="slab" lunit="mm" x="300" y="300" z="100"/>
+    <tube name="drill" lunit="mm" rmin="0" rmax="50" z="120"
+          deltaphi="6.283185307179586"/>
+    <subtraction name="holey_slab">
+      <first ref="slab"/>
+      <second ref="drill"/>
+      <position name="drill_pos" unit="mm" x="0" y="0" z="0"/>
+    </subtraction>
+  </solids>
+  <structure>
+    <volume name="pmt_log">
+      <materialref ref="glass"/>
+      <solidref ref="pmt_ball"/>
+    </volume>
+    <volume name="slab_log">
+      <materialref ref="steel"/>
+      <solidref ref="holey_slab"/>
+    </volume>
+    <volume name="tank_log">
+      <materialref ref="water"/>
+      <solidref ref="tank"/>
+      <physvol>
+        <volumeref ref="pmt_log"/>
+        <positionref ref="pmt_pos"/>
+        <rotationref ref="pmt_rot"/>
+      </physvol>
+      <physvol>
+        <volumeref ref="slab_log"/>
+        <positionref ref="slab_pos"/>
+      </physvol>
+    </volume>
+    <volume name="world_log">
+      <materialref ref="air"/>
+      <solidref ref="world_box"/>
+      <physvol>
+        <volumeref ref="tank_log"/>
+        <position name="tank_pos" unit="mm" x="0" y="0" z="0"/>
+      </physvol>
+    </volume>
+  </structure>
+  <setup name="Default" version="1.0">
+    <world ref="world_log"/>
+  </setup>
+</gdml>
+"""
+
+
+def matte_room():
+    """A 2 m room of matte (80% diffuse, 20% absorbing) walls with a glass
+    block in it, in air: every surface a camera inside sees parks photons."""
+    from chroma_tpu_torch.geometry import Geometry, Material, Solid, Surface
+    from chroma_tpu_torch.demo.optics import glass, vacuum
+    from chroma_tpu_torch.make import box
+    air = Material('air')
+    air.set('refractive_index', 1.0003)
+    air.set('absorption_length', 1e6)
+    air.set('scattering_length', 1e6)
+    matte = Surface('matte')
+    matte.set('reflect_diffuse', 0.8)
+    matte.set('absorb', 0.2)
+    geo = Geometry(vacuum)
+    geo.add_solid(Solid(box(2000.0, 2000.0, 2000.0), air, vacuum,
+                        surface=matte, color=0x00CCCCCC))
+    geo.add_solid(Solid(box(300.0, 300.0, 300.0), glass, air, surface=matte,
+                        color=0x0000CC00), displacement=(200.0, 300.0, -100.0))
+    geo.flatten()
+    return geo
+
+
+def shown(image):
+    "Share of an (h, w, 3) frame's pixels that are not the white background."
+    return float((image != 255).any(axis=-1).mean())
+
+
+def peeled(table, origin, direction, nlayers):
+    """The traversal state of the camera rays after `nlayers` depth layers
+    peeled by the kernel, as ops.render.peel carries it: (position, last hit
+    triangle, rays still active)."""
+    import torch
+    from chroma_tpu_torch.ops import visit_kernel
+    from chroma_tpu_torch.ops.linalg import fma
+    pos = origin
+    last = torch.full((len(origin),), -1, dtype=torch.int32,
+                      device=origin.device)
+    active = torch.ones(len(origin), dtype=torch.bool, device=origin.device)
+    for layer in range(nlayers):
+        tri, dist = visit_kernel.traverse(
+            table, pos, direction, last,
+            mask=None if layer == 0 else active)[:2]
+        hit = tri >= 0
+        pos = torch.where(hit[:, None], fma(dist[:, None], direction, pos),
+                          pos)
+        last = torch.where(hit, tri, last)
+        active = active & hit
+    return pos, last, active
+
+
+def phase_camera_rays(quick_geo, table, device, card):
+    """Phase 10a: K1 against its plain version on the camera rays of the
+    default pose, first and third depth layer; K1's time, visits and bound
+    on the first. Returns (times and bound, max |diff|)."""
+    import torch
+    from chroma_tpu_torch.camera import _scene_pose
+    from chroma_tpu_torch.ops import mesh_wide, visit_kernel
+    from chroma_tpu_torch.ops.render import _unit
+    pose, scale, center = _scene_pose(quick_geo)
+    rays = pose.rays(RENDER_SIZE, device=device)
+    o, d = rays.pos.contiguous(), _unit(rays.dir)
+    n = len(o)
+    seen = torch.zeros(table.rows.shape[0], dtype=torch.bool, device=device)
+    ref = [x.cpu().numpy() for x in mesh_wide.traverse(
+        table, o, d, by_kind=True, seen=seen)]
+    walk = [x.cpu().numpy() for x in visit_kernel.traverse(
+        table, o, d, by_kind=True)]
+    by_kind = ref[5]
+    np.testing.assert_array_equal(walk[5], by_kind,
+                                  err_msg='camera rays: visits by kind')
+    ref[5], walk[5] = by_kind.sum(axis=1), walk[5].sum(axis=1)
+    err = assert_same('camera rays, layer 1', walk, ref)
+    kinds = by_kind.sum(axis=0).tolist()
+    rows_seen = int(seen.sum())
+    bound, by, ops, nbytes = k1_bound(table, n, kinds, rows_seen)
+
+    pos, last, active = peeled(table, o, d, 2)
+    args = (table, pos, d, last, active)
+    ref3 = [x.cpu().numpy() for x in mesh_wide.traverse(*args)]
+    got3 = [x.cpu().numpy() for x in visit_kernel.traverse(*args)]
+    err = max(err, assert_same('camera rays, layer 3', got3, ref3))
+
+    med, runs = time_turns({
+        'walk': lambda: visit_kernel.traverse(table, o, d),
+        'plain': lambda: mesh_wide.traverse(table, o, d)})
+    log('phase 10a: K1 on the %d camera rays of the default pose (%d x %d, '
+        'from %.0f mm outside the centre), quick/bf16, %s:' % (
+            n, *RENDER_SIZE, scale, card))
+    log('  layer 1: kernel equals plain; %.1f%% of the rays hit; visits %d: '
+        'internal %d, leaf %d, instance %d (%.2f a ray) to %d of %d rows; '
+        '%.4g f32 operations, %.4g bytes: bound %.4f ms by %s' % (
+            100.0 * (ref[0] >= 0).mean(), sum(kinds), *kinds,
+            sum(kinds) / n, rows_seen, table.rows.shape[0], ops, nbytes,
+            bound, by))
+    log('  layer 3 (last hits excluded, %d rays still active, %d hit '
+        'again): kernel equals plain (max |diff| %.3g)' % (
+            int(active.sum()), int((ref3[0] >= 0).sum()), err))
+    for name, label in (('walk', 'warp-cooperative walk'),
+                        ('plain', 'plain version')):
+        log('  %-24s %9.4f ms (runs %s), %.2f%% of the bound' % (
+            label, med[name], ' '.join('%.4f' % x for x in runs[name]),
+            100.0 * bound / med[name]))
+    return dict(rays=n, ms=med['walk'], plain_ms=med['plain'],
+                bound_ms=bound, bound_by=by), err
+
+
+def render_frames(quick_geo, quick_dev, device):
+    "N_FRAMES frames of phase 10c, each down to its host image."
+    from chroma_tpu_torch.camera import _pixels_to_image, _scene_pose
+    pose, _, center = _scene_pose(quick_geo)
+    rays = pose.rays(RENDER_SIZE, device=device)
+    for _ in range(N_FRAMES):
+        _pixels_to_image(rays.render(quick_dev, ALPHA_DEPTH), RENDER_SIZE)
+        rays.rotate_around_point(0.05, (0.0, 0.0, 1.0), center)
+
+
+def phase_render(quick_geo, quick, quick_dev, device, card, out_dir):
+    """Phase 10b: render and distances, card against CPU; 10c: frames at
+    full width. Returns (K1 launches of 10c's frames, median wall a frame,
+    one frame's milliseconds in render(), in K1 and on the host)."""
+    import torch
+    from chroma_tpu_torch.camera import (_pixels_to_image, _scene_pose,
+                                         save_png, snapshot)
+    from chroma_tpu_torch.ops import render, visit_kernel
+    pose, scale, center = _scene_pose(quick_geo)
+    out = {}
+    for dev, ga in (('cpu', quick), (device, quick_dev)):
+        rays = pose.rays(CHECK_SIZE, device=dev)
+        (pix, dist), wall = timed(lambda: (
+            rays.render(ga, ALPHA_DEPTH),
+            render.distances(rays.pos, rays.dir, ga)))
+        out[dev] = (render.pixels_to_host(pix), dist.cpu().numpy(), wall)
+    (cp, cd, cwall), (gp, gd, gwall) = out['cpu'], out[device]
+    differ = np.flatnonzero(cp != gp)
+    worst = max(int(np.abs(((cp >> s) & 0xFF).astype(int)
+                           - ((gp >> s) & 0xFF).astype(int)).max())
+                for s in (24, 16, 8, 0))
+    hit = np.isfinite(cd)
+    log('phase 10b: render, %d x %d rays, alpha_depth %d, card (%.3f s) '
+        'against CPU (%.1f s): %d of %d pixels differ %s, largest channel '
+        'difference %d; distances: %d hits, max |diff| %.3g' % (
+            *CHECK_SIZE, ALPHA_DEPTH, gwall, cwall, len(differ), len(cp),
+            [(int(k), '%08x' % cp[k], '%08x' % gp[k]) for k in differ[:5]],
+            worst, int(hit.sum()),
+            float(np.abs(cd[hit] - gd[hit]).max(initial=0.0))))
+    assert len(differ) <= len(cp) // 1000 and worst <= 1
+    np.testing.assert_array_equal(hit, np.isfinite(gd))
+    np.testing.assert_allclose(gd[hit], cd[hit], rtol=RTOL)
+    cpu_image = _pixels_to_image(cp, CHECK_SIZE)
+
+    # 10c: a warm-up snapshot, then frames of turning rays
+    warm = snapshot(quick_geo, size=RENDER_SIZE, alpha_depth=ALPHA_DEPTH,
+                    geometry_arrays=quick_dev, device=device)
+    rays = pose.rays(RENDER_SIZE, device=device)
+    walls, frames = [], []
+    visit_kernel.launches = 0
+    for _ in range(N_FRAMES):
+        image, wall = timed(lambda: _pixels_to_image(
+            rays.render(quick_dev, ALPHA_DEPTH), RENDER_SIZE))
+        walls.append(wall)
+        frames.append(image)
+        rays.rotate_around_point(0.05, (0.0, 0.0, 1.0), center)
+    launches = visit_kernel.launches
+    wall = float(np.median(walls))
+    nrays = RENDER_SIZE[0] * RENDER_SIZE[1]
+    shares = [shown(f) for f in frames]
+    log('phase 10c: %d x %d frames of the quick detector, alpha_depth %d '
+        '(%s): wall a frame %s s (median %.4f s: %.2f frames/s, %.4g '
+        'rays/s), K1 launches %d (%.1f a frame), pixels showing geometry '
+        '%s (CPU render of the first pose, %d x %d: %.4f)' % (
+            *RENDER_SIZE, ALPHA_DEPTH, card,
+            ' '.join('%.4f' % w for w in walls), wall, 1.0 / wall,
+            nrays / wall, launches, launches / N_FRAMES,
+            ' '.join('%.4f' % x for x in shares), *CHECK_SIZE,
+            shown(cpu_image)))
+    assert launches > 0
+    for image in frames:
+        assert image.shape == (RENDER_SIZE[1], RENDER_SIZE[0], 3)
+        assert image.dtype == np.uint8
+    assert frames[0].tobytes() == warm.tobytes(), \
+        'the first frame is not snapshot()\'s'
+    assert abs(shares[0] - shown(cpu_image)) <= 0.02
+    save_png(os.path.join(out_dir, 'render_quick.png'), frames[0])
+
+    # where a frame's time goes: K1 layer by layer (CUDA events around each
+    # launch), the rest of render() on the card, the pixels to the host and
+    # the image there
+    spans = []
+    traverse = visit_kernel.traverse
+
+    def timed_traverse(inst, origin, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = traverse(inst, origin, *args, **kwargs)
+        end.record()
+        spans.append((start, end, kwargs.get('mask')))
+        return result
+    visit_kernel.traverse = timed_traverse
+    try:
+        pixels, t_render = timed(lambda: rays.render(quick_dev, ALPHA_DEPTH))
+    finally:
+        visit_kernel.traverse = traverse
+    _, t_image = timed(lambda: _pixels_to_image(pixels, RENDER_SIZE))
+    layers = [(a.elapsed_time(b), nrays if m is None else int(m.sum()))
+              for a, b, m in spans]
+    k1_ms = sum(ms for ms, _ in layers)
+    log('  one more frame: render() %.2f ms to a device synchronise, of it '
+        'K1 %.2f ms (%.1f%% of the %.2f ms frame) in %d launches [ms on '
+        'rays traced: %s]; pixels to the host and the image in numpy %.2f '
+        'ms' % (t_render * 1e3, k1_ms, 100.0 * k1_ms / (
+            (t_render + t_image) * 1e3), (t_render + t_image) * 1e3,
+            len(layers), ', '.join('%.3f on %d' % x for x in layers),
+            t_image * 1e3))
+    return launches, wall, dict(render_ms=t_render * 1e3, k1_ms=k1_ms,
+                                image_ms=t_image * 1e3)
+
+
+def phase_viewer(quick_geo, quick_dev, tiny_geo, ev5, device, card, work):
+    """Phase 10d: the viewer's frame modes with no display. Returns (K1
+    launches of the viewer frames, of the photon map, its wall)."""
+    import torch
+    import chroma_tpu_torch
+    from chroma_tpu_torch import gpu
+    from chroma_tpu_torch.camera import (Camera, CameraPose, EventViewer,
+                                         _scene_pose, bvh_layer_geometry,
+                                         draw_tracks, snapshot)
+    from chroma_tpu_torch.generator import photon_bomb
+    from chroma_tpu_torch.loader import load_bvh
+    from chroma_tpu_torch.make import box
+    from chroma_tpu_torch.ops import visit_kernel
+    size = VIEWER_SIZE
+    pose, scale, center = _scene_pose(quick_geo)
+    cam = Camera(quick_geo, size=size, alpha_depth=ALPHA_DEPTH,
+                 device=device)
+    cam._scale = scale
+    visit_kernel.launches = 0
+    mono = cam._frame(quick_dev, pose, False, False, (0, 0))
+    stereo = cam._frame(quick_dev, pose, True, False, (0, 0))
+    red = int((stereo[..., 0] != mono[..., 0]).sum())
+    assert mono.shape == (size[1], size[0], 3) and red > 0
+    assert (stereo[..., 1:] != 255).any()
+
+    tiny_geo.bvh = load_bvh(tiny_geo, cache_dir=os.path.join(work, 'cache'))
+    layer_geo = bvh_layer_geometry(tiny_geo, 1)
+    layer = snapshot(layer_geo, size=size, alpha_depth=ALPHA_DEPTH,
+                     device=device)
+    nboxes = len(tiny_geo.bvh.get_layer(1))
+    assert len(layer_geo.mesh.triangles) == len(box(1.0, 1.0, 1.0)
+                                                .triangles) * nboxes
+    assert shown(layer) > 0.01
+
+    viewer = EventViewer(quick_geo, [ev5], size=size,
+                         alpha_depth=ALPHA_DEPTH, device=device)
+    viewer._scale = scale
+    viewer._ga_base = quick_dev
+    colors = viewer.event_colors(ev5)
+    solid_hit = np.zeros(int(quick_geo.solid_id.max()) + 1, bool)
+    solid_hit[np.asarray(quick_geo.channel_index_to_solid_id)[
+        ev5.channels.hit]] = True
+    of_hit = solid_hit[quick_geo.solid_id]
+    changed = colors != quick_geo.colors
+    assert not changed[~of_hit].any() and changed[of_hit].mean() > 0.99
+    recolored = viewer._recolored()
+    assert recolored.colors.device == quick_dev.colors.device
+    event_frame = viewer._frame(recolored, pose, False, False, (0, 0))
+    repainted = int((event_frame != mono).any(axis=-1).sum())
+    assert repainted > 0
+
+    tsim = chroma_tpu_torch.Simulation(quick_geo, seed=3, device='cuda',
+                                       gpu_geometry=quick_dev,
+                                       photon_tracking=True)
+    np.random.seed(93)
+    tev = next(tsim.simulate(photon_bomb(N_TRACK, 400.0, (0, 0, 0)),
+                             max_steps=MAX_STEPS))
+    viewer.source = type(viewer.source)([tev])
+    viewer.show_tracks = True
+    overlaid = viewer._overlay(event_frame.copy(), pose)
+    marked = int((overlaid != event_frame).any(axis=-1).sum())
+    assert marked > 0
+    assert draw_tracks(event_frame.copy(), tev.photon_tracks, pose,
+                       size).tobytes() == overlaid.tobytes()
+
+    rays = pose.rays(size, device=device)
+    grays = gpu.GPURays(rays.pos, rays.dir, device=device)
+    host = np.zeros(size[0] * size[1], np.uint32)
+    pix = grays.render(gpu.GPUGeometry(quick_geo, arrays=quick_dev,
+                                       device=device), pixels=host,
+                       alpha_depth=ALPHA_DEPTH)
+    assert torch.equal(pix, rays.render(quick_dev, ALPHA_DEPTH))
+    assert (host.view(np.int32) == pix.cpu().numpy()).all()
+    launches = visit_kernel.launches
+    log('phase 10d: viewer frames at %d x %d through Camera._frame and '
+        'EventViewer (%s): anaglyph differs from mono in the red of %d '
+        'pixels; BVH layer 1 of demo.tiny(): %d boxes, %.4f of the frame; '
+        'event colors: %d channels hit, only their triangles recolored, %d '
+        'pixels repainted; track overlay of %d tracked photons marks %d '
+        'pixels; GPURays.render equals Rays.render; K1 launches %d' % (
+            *size, card, red, nboxes, shown(layer),
+            int(ev5.channels.hit.sum()), repainted, N_TRACK, marked,
+            launches))
+    assert launches > 0
+
+    # the photon map. In the quick detector photons park on photocathodes,
+    # behind the glass that a camera ray meets first, so its map is dark:
+    # it gives the launches and the wall at the detector's width. A matte
+    # room gives the lit image.
+    inside = CameraPose(center, axis1=(0, 0, 1), axis2=(1, 0, 0))
+    visit_kernel.launches = 0
+    hybrid, wall = timed(lambda: cam._frame(quick_dev, inside, False, True,
+                                            (0, 0)))
+    room = matte_room()
+    room_cam = Camera(room, size=size, device=device)
+    room_pose = CameraPose((0.0, -900.0, 0.0), axis1=(0, 0, 1),
+                           axis2=(1, 0, 0))
+    lit_room, room_wall = timed(lambda: room_cam._frame(
+        room_cam._geometry_arrays(), room_pose, False, True, (0, 0)))
+    launches_h = visit_kernel.launches
+    lit = float(lit_room.any(axis=-1).mean())
+    log('  photon map (hybrid_render, 4 batches of 100000 photons, %d x '
+        '%d): from the centre of the quick detector wall %.3f s, %d pixels '
+        'lit; in a matte room wall %.3f s, %.4f of the pixels lit, '
+        'brightest channel %d; K1 launches %d' % (
+            *size, wall, int(hybrid.any(axis=-1).sum()), room_wall, lit,
+            int(lit_room.max()), launches_h))
+    assert hybrid.shape == lit_room.shape == (size[1], size[0], 3)
+    assert lit > 0.9 and lit_room.max() == 255 and launches_h > 0
+    return launches, launches_h, wall
+
+
+def phase_render_tools(work, card, out_dir):
+    """Phase 10e: chroma_tpu_torch.cli.cam -o as a subprocess on
+    demo.tiny(), and chroma_tpu_torch.cli.bvh create, stat and sort on a
+    demo mesh, their caches in the work directory. Returns cli.cam's K1
+    launches and its walls with and without the process start."""
+    env = dict(os.environ, CHROMA_CACHE_DIR=os.path.join(work, 'cache'))
+    png = os.path.join(out_dir, 'tiny.png')
+    t0 = time.perf_counter()
+    stdout, err, launches = run_tool(
+        'chroma_tpu_torch.cli.cam', [
+            '@chroma_tpu_torch.demo.tiny', '--size',
+            *(str(x) for x in CLI_CAM_SIZE), '-o', png], env)
+    wall = time.perf_counter() - t0
+    inner = float(re.findall(r'tool seconds ([\d.]+)', err)[-1])
+    with open(png, 'rb') as fh:
+        head = fh.read(24)
+    assert 'wrote' in stdout and head[:8] == b'\x89PNG\r\n\x1a\n'
+    assert tuple(int.from_bytes(head[k:k + 4], 'big')
+                 for k in (16, 20)) == CLI_CAM_SIZE
+    log('phase 10e: python -m chroma_tpu_torch.cli.cam @chroma_tpu_torch.'
+        'demo.tiny --size %d %d -o tiny.png (%s): %.1f s with the process '
+        'start, %.1f s in the tool (imports, geometry, BVH, arrays, frame), '
+        'K1 launches %d, %d bytes' % (*CLI_CAM_SIZE, card, wall, inner,
+                                      launches, os.path.getsize(png)))
+    assert launches > 0
+    mesh = '@chroma_tpu_torch.models.liberty'
+    code = ('from chroma_tpu_torch.cli import bvh\n'
+            'for argv in (["create", %r, "smoke"], ["stat", %r, "smoke"], '
+            '["sort", %r, "smoke"], ["list", %r]):\n'
+            '    bvh.main(argv)\n' % (mesh, mesh, mesh, mesh))
+    proc = subprocess.run([sys.executable, '-c', code], env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError('cli.bvh failed (%d):\n%s' % (
+            proc.returncode, proc.stderr[-4000:]))
+    lines = proc.stdout.splitlines()
+    log('  chroma_tpu_torch.cli.bvh create / stat / sort / list on %s: %s'
+        % (mesh, ' | '.join(line.strip() for line in lines[:3] + lines[-2:])))
+    assert 'BVH built in' in lines[0] and 'nodes:' in proc.stdout
+    assert 'Sorting BVH nodes by area' in proc.stdout and lines[-1] == 'smoke'
+    return launches, wall, inner
+
+
+def phase_gdml(device, card, work):
+    """Phase 10f: a GDML document with a boolean solid, through GDMLLoader,
+    as a Detector on the card: a bomb with the DAQ, and one frame. Returns
+    the K1 launches of both."""
+    import chroma_tpu_torch
+    from chroma_tpu_torch import event
+    from chroma_tpu_torch.camera import snapshot
+    from chroma_tpu_torch.csg import mesh_volume
+    from chroma_tpu_torch.demo import optics
+    from chroma_tpu_torch.gdml import GDMLLoader
+    from chroma_tpu_torch.generator import photon_bomb
+    from chroma_tpu_torch.ops import visit_kernel
+    path = os.path.join(work, 'smoke.gdml')
+    with open(path, 'w') as fh:
+        fh.write(GDML_DOC)
+    loader = GDMLLoader(path)
+
+    def classify(volume_ref, material_ref, parent_material_ref):
+        if volume_ref == 'pmt_log':
+            return 'pmt', dict(material1=optics.vacuum,
+                               material2=optics.water,
+                               surface=optics.r7081hqe_photocathode,
+                               channel_type=0)
+        if volume_ref == 'world_log':
+            return 'omit', dict()
+        if volume_ref == 'slab_log':
+            return 'solid', dict(material1=optics.glass,
+                                 material2=optics.water,
+                                 surface=optics.shiny_surface)
+        return 'solid', dict(material1=optics.water,
+                             material2=optics.vacuum,
+                             surface=optics.black_surface)
+    det = loader.build_detector(volume_classifier=classify)
+    det.set_time_dist_gaussian(1.5, -7.5, 7.5)
+    det.set_charge_dist_gaussian(1.0, 0.1, 0.0, 1.5)
+    det.flatten()
+    drilled = mesh_volume(loader.get_mesh('holey_slab'))
+    want = 300.0 * 300 * 100 - np.pi * 50 ** 2 * 100
+    assert abs(drilled - want) / want < 0.02
+    sim = chroma_tpu_torch.Simulation(det, seed=0, device='cuda')
+    np.random.seed(94)
+    visit_kernel.launches = 0
+    ev, wall = timed(lambda: next(sim.simulate(
+        photon_bomb(N_CHECK, 400.0, (0, 0, 0)), run_daq=True,
+        keep_photons_end=True, max_steps=MAX_STEPS)))
+    flags = ev.photons_end.flags
+    aborts = int(((flags & event.NAN_ABORT) != 0).sum())
+    image = snapshot(det, size=VIEWER_SIZE, alpha_depth=ALPHA_DEPTH,
+                     geometry_arrays=sim.gpu_geometry, device=device)
+    launches = visit_kernel.launches
+    log('phase 10f: GDML detector (tank, PMT ball, a slab with a drilled '
+        'hole: %d solids, %d triangles, %d channel; the boolean solid has '
+        '%.4f of the analytic volume): %d-photon bomb in %.3f s, detected '
+        '%d, channel hit %s, NaN aborts %d; one %d x %d frame shows '
+        'geometry in %.4f of its pixels; K1 launches %d (%s)' % (
+            len(det.solids), len(det.mesh.triangles), det.num_channels(),
+            drilled / want, N_CHECK, wall, len(ev.flat_hits),
+            ev.channels.hit.tolist(), aborts, *VIEWER_SIZE, shown(image),
+            launches, card))
+    assert aborts == 0 and launches > 0 and ev.channels.hit.all()
+    assert len(ev.flat_hits) > 0 and shown(image) > 0.05
+    return launches
+
+
 def main(argv, work):
     import torch
     if not torch.cuda.is_available():
@@ -1176,6 +1715,9 @@ def main(argv, work):
     from chroma_tpu_torch.ops import mesh_wide, visit_kernel
     profile = argv[argv.index('--profile') + 1] \
         if '--profile' in argv else None
+    out_dir = os.path.abspath(argv[argv.index('--out') + 1]) \
+        if '--out' in argv else os.path.join(work, 'frames')
+    os.makedirs(out_dir, exist_ok=True)
     device = torch.device('cuda', 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1280,6 +1822,19 @@ def main(argv, work):
                                                         card)
     launches9e, launches9e_prof = phase_cli(work, card)
 
+    # --- 10. the renderer and the viewer
+    camera_k1, err = phase_camera_rays(quick_geo, quick_tables['bf16'],
+                                       device, card)
+    max_err = max(max_err, err)
+    quick_dev = quick.to(device)
+    launches10c, wall10c, frame_ms = phase_render(
+        quick_geo, quick, quick_dev, device, card, out_dir)
+    launches10d, launches10h, wall10h = phase_viewer(
+        quick_geo, quick_dev, tiny_geo, ev, device, card, work)
+    launches10e, wall10e, inner10e = phase_render_tools(work, card,
+                                                        out_dir)
+    launches10f = phase_gdml(device, card, work)
+
     if profile:
         profile_run('quick', lambda: run_main_path(sim, N_BOMB, 7), card,
                     profile)
@@ -1289,11 +1844,16 @@ def main(argv, work):
         profile_run('likelihood eval', lambda: lk.eval(
             likelihood_gun(19), nevals, nreps=nreps, ndaq=ndaq), card,
             profile)
+        profile_run('render frames', lambda: render_frames(
+            quick_geo, quick_dev, device), card, profile)
     per_phase = {'5 quick': launches, '6 quick-optics': launches6,
                  '7 lartpc-wires': launches7, '8 likelihood': launches8,
                  '9b device source': launches9b, '9c facade': launches9c,
                  '9d tracking': launches9d, '9e cli sim': launches9e,
-                 '9e cli profile': launches9e_prof}
+                 '9e cli profile': launches9e_prof,
+                 '10c render': launches10c, '10d viewer': launches10d,
+                 '10d hybrid': launches10h, '10e cli cam': launches10e,
+                 '10f gdml': launches10f}
     log('visit-kernel launches per main path: %s' % json.dumps(per_phase))
     assert visit_kernel.thread_launches == thread_launches, \
         'a main path launched the first design'
@@ -1302,7 +1862,9 @@ def main(argv, work):
     log(json.dumps({'entry_points': dict(
         geocache_s=geocache_s, device_source_s=wall9b, phase5_s=wall,
         same_photons_s=pair9b, tracked_s=wall_track,
-        untracked_s=wall_plain, card=card)}))
+        untracked_s=wall_plain, frame_s=wall10c, frame_ms=frame_ms,
+        hybrid_s=wall10h,
+        cli_cam_s=wall10e, cli_cam_tool_s=inner10e, card=card)}))
     log(json.dumps({'kernels': [{
         'name': 'visit_inst',
         'route': 'cuda',
@@ -1325,6 +1887,12 @@ def main(argv, work):
         'bound_ms_small': small['bound_ms'],
         'bound_share_small': small['bound_ms'] / small['ms'],
         'thread_ms_small': small['thread_ms'],
+        'rays_camera': camera_k1['rays'],
+        'ms_camera': camera_k1['ms'],
+        'plain_ms_camera': camera_k1['plain_ms'],
+        'bound_ms_camera': camera_k1['bound_ms'],
+        'bound_by_camera': camera_k1['bound_by'],
+        'bound_share_camera': camera_k1['bound_ms'] / camera_k1['ms'],
     }]}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -7,19 +7,21 @@ port's equivalents live in chroma_tpu_torch.ops as functional modules;
 this facade wraps them in the familiar object API so reference call sites
 port with an import change. Random state is the port's (seed, counter)
 pair, the one Simulation feeds its propagation and DAQ generators, where
-the JAX facade hands out keys. GPURays waits for the renderer.
+the JAX facade hands out keys.
 """
 from __future__ import annotations
 
 import torch
 
 from chroma_tpu_torch import event
+from chroma_tpu_torch.camera import Rays
 from chroma_tpu_torch.ops import daq as daq_ops
 from chroma_tpu_torch.ops import pdf as pdf_ops
 from chroma_tpu_torch.ops.photon import PhotonState, i32
 from chroma_tpu_torch.ops.propagate import (_ps_compact_perm, propagate,
                                             photon_state_from_host,
                                             photon_state_to_host)
+from chroma_tpu_torch.ops.render import pixels_to_host
 from chroma_tpu_torch.ops.sample import make_generator
 from chroma_tpu_torch.ops.types import build_geometry_arrays
 from chroma_tpu_torch.sim import DAQ_SITE
@@ -265,3 +267,38 @@ class GPUKernelPDF(object):
 
     def get_kernel_eval(self):
         return self._kernel.get_kernel_eval()
+
+
+class GPURays(object):
+    "Ray bundle for rendering (reference: chroma/gpu/render.py GPURays)."
+
+    def __init__(self, pos, dir, max_alpha_depth=10, device='cuda',
+                 **_compat):
+        self._rays = Rays(pos, dir, device)
+        self.max_alpha_depth = max_alpha_depth
+
+    @property
+    def pos(self):
+        return self._rays.pos
+
+    @property
+    def dir(self):
+        return self._rays.dir
+
+    def rotate(self, phi, n):
+        self._rays.rotate(phi, n)
+
+    def rotate_around_point(self, phi, n, point):
+        self._rays.rotate_around_point(phi, n, point)
+
+    def translate(self, v):
+        self._rays.translate(v)
+
+    def render(self, gpu_geometry, pixels=None, alpha_depth=10,
+               keep_last_render=False):
+        """(N,) int32 ARGB pixels (u32 bit patterns) on the rays' device;
+        a host uint32 array `pixels` is filled with them too."""
+        out = self._rays.render(gpu_geometry.arrays, alpha_depth)
+        if pixels is not None:
+            pixels[:] = pixels_to_host(out)
+        return out

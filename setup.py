@@ -11,7 +11,11 @@ setup(
         'chroma_tpu.demo': ['data/*'],
         'chroma_tpu.color': ['*.csv'],
         'chroma_tpu.models': ['*.stl', '*.stl.bz2'],
-        'chroma_tpu_torch': ['csrc/*.cu'],
+        'chroma_tpu_torch': ['csrc/*.cu', 'csrc/*.cpp'],
+        'chroma_tpu_torch.demo': ['data/*'],
+        'chroma_tpu_torch.io': ['*.C'],
+        'chroma_tpu_torch.color': ['*.csv'],
+        'chroma_tpu_torch.models': ['*.stl', '*.stl.bz2'],
     },
     scripts=[
         'bin/chroma-sim', 'bin/chroma-cam', 'bin/chroma-geo',

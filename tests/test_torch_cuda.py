@@ -217,3 +217,119 @@ def test_device_source_simulation_and_facade(cuda):
                                       getattr(ev.channels, name),
                                       err_msg=name)
     assert (ev.flat_hits.flags & event.SURFACE_DETECT).all()
+
+
+def _camera_scene():
+    "The fixture solids, colored and half transparent, as a geometry."
+    geo = Geometry(water)
+    geo.add_solid(Solid(box(100.0, 80.0, 60.0), glass, water,
+                        color=0x80FF3366))
+    geo.add_solid(Solid(sphere(30.0, nsteps=24), glass, water,
+                        color=0x4000FF40), displacement=(120.0, 0.0, 0.0))
+    geo.add_solid(Solid(box(40.0, 40.0, 40.0), glass, water,
+                        color=0x002060FF), displacement=(-120.0, 30.0, 0.0))
+    geo.flatten()
+    return geo
+
+
+@pytest.mark.cuda
+def test_camera_rays_match_plain(cuda):
+    """The kernel on camera rays from outside the scene, first layer (no
+    mask) and second layer (last hits excluded, the rays still active):
+    all six outputs against the plain version."""
+    from chroma_tpu_torch.camera import _scene_pose
+    from chroma_tpu_torch.ops.render import _unit, peel
+    from chroma_tpu_torch.ops.types import build_geometry_arrays
+    geo = _camera_scene()
+    ga = build_geometry_arrays(geo).to(cuda)
+    rays = _scene_pose(geo)[0].rays((160, 120), device=cuda)
+    o, d = rays.pos.contiguous(), _unit(rays.dir)
+    ref = [x.cpu().numpy() for x in mesh_wide.traverse(ga.wide, o, d)]
+    got = [x.cpu().numpy() for x in visit_kernel.traverse(ga.wide, o, d)]
+    _assert_same(got, ref, 500)
+    pos, last = o, torch.full((len(o),), -1, dtype=torch.int32, device=cuda)
+    active = torch.ones(len(o), dtype=torch.bool, device=cuda)
+    for tri, dist in peel(o, d, ga, 1):
+        hit = tri >= 0
+        pos = torch.where(hit[:, None], pos + dist[:, None] * d, pos)
+        last = torch.where(hit, tri, last)
+        active = active & hit
+    full = (pos, d, last, active)
+    ref = [x.cpu().numpy() for x in mesh_wide.traverse(ga.wide, *full)]
+    got = [x.cpu().numpy() for x in visit_kernel.traverse(ga.wide, *full)]
+    _assert_same(got, ref, 100)
+    assert (ref[0][~active.cpu().numpy()] == -1).all()
+
+
+@pytest.mark.cuda
+def test_render_card_against_cpu(cuda):
+    """render, distances and snapshot on the card (kernel) and on the CPU
+    (plain version) from the same rays: at least 99.9% of the pixels equal,
+    every channel within 1 count, distances to rtol 1e-5; the card's
+    frames launch the kernel, one launch a layer."""
+    from chroma_tpu_torch.camera import _scene_pose, snapshot
+    from chroma_tpu_torch.ops import render
+    from chroma_tpu_torch.ops.types import build_geometry_arrays
+    geo = _camera_scene()
+    ga = build_geometry_arrays(geo)
+    pose = _scene_pose(geo)[0]
+    out = {}
+    for dev in ('cpu', cuda):
+        rays = pose.rays((160, 120), device=dev)
+        before = visit_kernel.launches
+        pix = rays.render(ga.to(dev), alpha_depth=6)
+        out[str(dev)] = (render.pixels_to_host(pix),
+                         render.distances(rays.pos, rays.dir,
+                                          ga.to(dev)).cpu().numpy(),
+                         visit_kernel.launches - before)
+    (cp, cd, cl), (gp, gd, gl) = out['cpu'], out[str(cuda)]
+    assert cl == 0 and 2 <= gl <= 7
+    assert (cp != gp).mean() <= 1e-3 and (cp != 0xFFFFFFFF).sum() > 500
+    for shift in (24, 16, 8, 0):
+        assert np.abs(((cp >> shift) & 0xFF).astype(int)
+                      - ((gp >> shift) & 0xFF).astype(int)).max() <= 1
+    hit = np.isfinite(cd)
+    np.testing.assert_array_equal(hit, np.isfinite(gd))
+    np.testing.assert_allclose(gd[hit], cd[hit], rtol=1e-5)
+    image = snapshot(geo, size=(160, 120), alpha_depth=6, device=cuda)
+    assert image.tobytes() == snapshot(geo, size=(160, 120), alpha_depth=6,
+                                       device='cpu').tobytes()
+
+
+@pytest.mark.cuda
+def test_photon_map_card_against_cpu(cuda):
+    """update_xyz_lookup's index_add on the card against the CPU's to rtol
+    1e-4 (the card adds in no fixed order), and hybrid_render on the card
+    lights the matte walls a camera sees."""
+    from chroma_tpu_torch.camera import CameraPose
+    from chroma_tpu_torch.ops import render
+    from chroma_tpu_torch.ops.types import build_geometry_arrays
+    matte = Surface('matte')
+    matte.set('reflect_diffuse', 0.8)
+    matte.set('absorb', 0.2)
+    geo = Geometry(vacuum)
+    geo.add_solid(Solid(box(2000.0, 2000.0, 2000.0), water, vacuum,
+                        surface=matte))
+    geo.flatten()
+    ga = build_geometry_arrays(geo)
+    n = 50000
+    rs = np.random.RandomState(4)
+    state = _device_bomb(n, 6, 'cpu')
+    state.flags[:] = torch.from_numpy(np.where(
+        rs.uniform(size=n) < 0.7, event.REFLECT_DIFFUSE, 2).astype(np.int32))
+    state.last_hit_triangle[:] = torch.from_numpy(
+        rs.randint(-1, 12, n).astype(np.int32))
+    state.wavelength[:] = torch.from_numpy(
+        rs.uniform(380, 680, n).astype(np.float32))
+    zero = torch.zeros((12, 3))
+    want = render.update_xyz_lookup(state, ga, zero).numpy()
+    got = render.update_xyz_lookup(state.to(cuda), ga.to(cuda),
+                                   zero.to(cuda)).cpu().numpy()
+    assert want.sum() > 1000
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    rays = CameraPose((0.0, -900.0, 0.0)).rays((64, 48), device=cuda)
+    before = visit_kernel.launches
+    pix = render.pixels_to_host(render.hybrid_render(
+        rays.pos, rays.dir, ga.to(cuda), (3, 0), nphotons=20000, nbatches=2))
+    assert visit_kernel.launches > before
+    assert (pix >> 24 == 0xFF).all() and ((pix & 0xFFFFFF) != 0).mean() > 0.9

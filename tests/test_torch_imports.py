@@ -32,8 +32,9 @@ def _imported(tree):
 
 
 def test_scan_covers_the_port():
-    """The scan sees the host copies, the ops, the kernel wrapper and the
-    entry points (loader, caches, io, facade, profiler, services, CLI)."""
+    """The scan sees the host copies, the ops, the kernel wrapper, the
+    entry points (loader, caches, io, facade, profiler, services, CLI), the
+    renderer and viewer, and the GDML, analysis and demo-mesh copies."""
     sources = _sources()
     for name in ('event.py', 'geometry.py', 'likelihood.py', 'native.py',
                  os.path.join('demo', 'optics.py'),
@@ -48,7 +49,23 @@ def test_scan_covers_the_port():
                  os.path.join('cli', 'sim.py'), os.path.join('cli', 'geo.py'),
                  os.path.join('cli', 'profile.py'),
                  os.path.join('cli', 'server.py'),
-                 os.path.join('cli', 'server_rat.py')):
+                 os.path.join('cli', 'server_rat.py'),
+                 os.path.join('cli', 'cam.py'), os.path.join('cli', 'bvh.py'),
+                 'camera.py', os.path.join('ops', 'render.py'),
+                 os.path.join('ops', 'transform.py'),
+                 os.path.join('ops', 'mesh.py'),
+                 os.path.join('ops', 'intersect.py'),
+                 os.path.join('bvh', 'dfs.py'),
+                 os.path.join('color', 'chromaticity.py'),
+                 os.path.join('color', 'colormap.py'),
+                 os.path.join('models', '__init__.py'), 'csg.py',
+                 os.path.join('gdml', 'loader.py'),
+                 os.path.join('gdml', 'mesh_gen.py'),
+                 os.path.join('histogram', 'histogram.py'),
+                 os.path.join('histogram', 'histogramdd.py'),
+                 os.path.join('histogram', 'graph.py'),
+                 os.path.join('histogram', 'draw.py'), 'parabola.py',
+                 'pi0.py'):
         assert os.path.join('chroma_tpu_torch', name) in sources, name
 
 
@@ -81,3 +98,15 @@ def test_port_reads_its_own_files():
         assert os.path.exists(path), path
     assert sorted(os.listdir(optics._DATA)) == sorted(os.listdir(
         os.path.join(REPO, 'chroma_tpu', 'demo', 'data')))
+    # the color table and the demo meshes are the port's own files, equal
+    # to the originals
+    for sub, pattern in (('color', '.csv'), ('models', '.stl'),
+                         ('models', '.bz2')):
+        names = [n for n in sorted(os.listdir(os.path.join(PORT, sub)))
+                 if n.endswith(pattern)]
+        assert names == [n for n in sorted(os.listdir(
+            os.path.join(REPO, 'chroma_tpu', sub))) if n.endswith(pattern)]
+        for n in names:
+            with open(os.path.join(PORT, sub, n), 'rb') as a, \
+                    open(os.path.join(REPO, 'chroma_tpu', sub, n), 'rb') as b:
+                assert a.read() == b.read(), n
