@@ -99,8 +99,15 @@ non-zero:
         demo.tiny(), and chroma_tpu_torch.cli.bvh create, stat and sort;
      f. GDML: a document with a boolean solid through GDMLLoader as a
         Detector, a 65,536-photon bomb with run_daq=True and one frame.
+ 11. photon sharding (chroma_tpu_torch.parallel) through run_ranks: two
+     gloo ranks sharing the card (and NCCL with one rank a card where there
+     are several), each lean-loading 9a's geocache: Simulation(n_devices=k)
+     on phase 5's bomb, its detected fraction against phase 5's, the same
+     channels on every rank; propagate_and_daq_sharded's reduced readout
+     against a single-process emulation, bit for bit; two calls with one
+     seed equal; every rank's K1 launches; the wall against phase 5's.
 
-The kernel's launches are counted on each main path (phases 5 to 10, reset
+The kernel's launches are counted on each main path (phases 5 to 11, reset
 just before and read just after) and printed per phase; the first design is
 launched on none of them. The last lines are a JSON object describing the
 kernels, and {"ok": true, "device": {...}}. Needs CUDA and the repository
@@ -1705,6 +1712,173 @@ def phase_gdml(device, card, work):
     return launches
 
 
+def sharded_rank(geocache, seed):
+    """Phase 11 in one rank of the group run_ranks started: the quick
+    detector lean-loaded from phase 9a's geocache onto the rank's card;
+    propagate_and_daq_sharded twice with one seed on phase 5's 2^20-photon
+    bomb (after pad_to_mesh), then Simulation(n_devices=size) on the same
+    bomb with K1's launches counted from 0. Returns numpy results, and
+    rank 0 also the propagated state the DAQ read."""
+    import hashlib
+    import torch
+    import chroma_tpu_torch
+    from chroma_tpu_torch import event
+    from chroma_tpu_torch.generator import photon_bomb
+    from chroma_tpu_torch.io.geocache import load_geometry_arrays
+    from chroma_tpu_torch.ops import visit_kernel
+    from chroma_tpu_torch.ops.propagate import photon_state_from_host
+    from chroma_tpu_torch.parallel import (pad_to_mesh, photon_mesh,
+                                           propagate_and_daq_sharded)
+    from chroma_tpu_torch.profiler import profiler
+    mesh = photon_mesh()
+    ga = load_geometry_arrays(geocache, lean=True).to(mesh.device)
+    np.random.seed(5)
+    bomb = photon_bomb(N_BOMB, 400.0, (0, 0, 0))
+    state, _ = pad_to_mesh(photon_state_from_host(bomb, mesh.device), mesh)
+
+    def fields(st):
+        return {k: v.cpu().numpy() for k, v in vars(st).items()}
+    out = dict(rank=mesh.rank, device=str(mesh.device), digests=[],
+               daq_s=[])
+    for _ in range(2):
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        photons, channels = propagate_and_daq_sharded(
+            state, ga, seed, max_steps=MAX_STEPS, mesh=mesh)
+        torch.cuda.synchronize(mesh.device)
+        out['daq_s'].append(time.perf_counter() - t0)
+        daq = tuple(x.cpu().numpy() for x in (
+            channels.earliest_time, channels.charge, channels.histories))
+        digest = hashlib.sha256()
+        for arr in list(fields(photons).values()) + list(daq):
+            digest.update(arr.tobytes())
+        out['digests'].append(digest.hexdigest())
+    out['daq'] = daq
+    if mesh.rank == 0:
+        out['state'] = fields(photons)
+
+    sim = chroma_tpu_torch.Simulation(None, seed=0, gpu_geometry=ga,
+                                      n_devices=mesh.size)
+    torch.cuda.synchronize(mesh.device)
+    profiler.reset()
+    profiler.enabled = True
+    visit_kernel.launches = 0
+    t0 = time.perf_counter()
+    ev = next(sim.simulate([bomb], run_daq=True, max_steps=MAX_STEPS,
+                           keep_photons_end=True))
+    torch.cuda.synchronize(mesh.device)
+    out['wall'] = time.perf_counter() - t0
+    out['launches'] = visit_kernel.launches
+    profiler.enabled = False
+    out['regions'] = {name: st.total for name, st in
+                      sorted(profiler.regions.items())}
+    out['detected'] = len(ev.flat_hits)
+    out['aborts'] = int(((ev.photons_end.flags & event.NAN_ABORT)
+                         != 0).sum())
+    out['channels'] = (ev.channels.t, ev.channels.q, ev.channels.flags)
+    return out
+
+
+def phase_sharded(loaded, work, card, phase5):
+    """Phase 11: the photon sharding, through parallel.run_ranks: two gloo
+    ranks on card 0 (NCCL refuses two ranks on one card; gloo reduces
+    through the host), and with more than one card, NCCL with one rank a
+    card. (a) Simulation(n_devices=k): its detected fraction against phase
+    5's within 5 sigma, no NaN abort, one channel set on every rank; (b)
+    propagate_and_daq_sharded: the ranks' reduced ChannelArrays equal a
+    single-process emulation (each shard's run_daq here with the rank's
+    generator, reduced by numpy min / sum / OR), earliest times and
+    histories bit for bit, charge at charge_unit; (c) two calls with one
+    seed equal bit for bit; (d) every rank launched K1; (e) the wall
+    against phase 5's. Returns (K1 launches summed over the ranks of every
+    run, a summary for the JSON line)."""
+    import torch
+    from chroma_tpu_torch.ops import daq as daq_ops
+    from chroma_tpu_torch.ops.photon import PhotonState
+    from chroma_tpu_torch.ops.sample import make_generator
+    from chroma_tpu_torch.parallel import PhotonMesh, run_ranks, shard_seed
+    from chroma_tpu_torch.parallel.sharding import DAQ_SITE
+    geocache = os.path.join(work, 'quick_geocache')
+    seed = 11
+    frac5, wall5 = phase5
+    runs = [('gloo', 2)]
+    if torch.cuda.device_count() > 1:
+        runs.append(('nccl', torch.cuda.device_count()))
+    launches, summary = 0, {}
+    for backend, nranks in runs:
+        t0 = time.perf_counter()
+        res = run_ranks(sharded_rank, nranks, args=(geocache, seed),
+                        backend=backend, timeout=600)
+        call_s = time.perf_counter() - t0
+        # (a) Simulation(n_devices=k)
+        first = res[0]
+        for r in res:
+            assert r['aborts'] == 0, 'NaN aborts in rank %d' % r['rank']
+            assert r['detected'] == first['detected']
+            for a, b in zip(r['channels'], first['channels']):
+                assert a.tobytes() == b.tobytes(), 'channels differ'
+        detected_fraction_check(first['detected'] / N_BOMB, N_BOMB, frac5,
+                                N_BOMB, 'phase 11 (%s) detected fraction, '
+                                'sharded vs phase 5' % backend)
+        # (b) the reduced readout against the single-process emulation
+        state = {k: torch.from_numpy(v).to(loaded.wide.rows.device)
+                 for k, v in first['state'].items()}
+        n = len(state['t'])
+        per = n // nranks
+        parts = []
+        for rank in range(nranks):
+            part = PhotonState(**{k: v[rank * per:(rank + 1) * per]
+                                  for k, v in state.items()})
+            mesh = PhotonMesh(None, nranks, rank, loaded.wide.rows.device)
+            gen = make_generator(mesh.device,
+                                 *shard_seed((seed, DAQ_SITE), mesh))
+            arr = daq_ops.run_daq(part, loaded, gen)
+            parts.append([x.cpu().numpy() for x in (
+                arr.earliest_time, arr.charge, arr.histories)])
+        t_e = np.min([p[0] for p in parts], axis=0)
+        q_e = np.sum([p[1] for p in parts], axis=0)
+        h_e = np.bitwise_or.reduce([p[2].view(np.uint32) for p in parts],
+                                   axis=0)
+        unit = float(loaded.detector.charge_unit)
+        for r in res:
+            t, q, h = r['daq']
+            assert t.tobytes() == t_e.tobytes(), 'earliest times differ'
+            assert h.view(np.uint32).tobytes() == h_e.tobytes(), \
+                'histories differ'
+            np.testing.assert_array_equal(np.round(q / unit),
+                                          np.round(q_e / unit))
+        # (c) repeatability, (d) launches
+        digests = {d for r in res for d in r['digests']}
+        assert len(digests) == 1, 'two calls with one seed differ'
+        per_rank = [r['launches'] for r in res]
+        assert min(per_rank) > 0, 'a rank launched no K1'
+        launches += sum(per_rank)
+        wall = max(r['wall'] for r in res)
+        log('phase 11: %s, %d ranks on %s: Simulation(n_devices=%d) on '
+            'the %d-photon bomb of phase 5: wall %.3f s (ranks %s) against '
+            'phase 5\'s one-process %.3f s (x%.2f), detected %d (%.5f; '
+            'phase 5 %.5f), channels hit %d, NaN aborts 0, K1 launches a '
+            'rank %s; propagate_and_daq_sharded %s s, the reduced readout '
+            'equal to the single-process emulation (%d channels hit), two '
+            'calls equal; run_ranks call %.1f s (%s)' % (
+                backend, nranks, sorted({r['device'] for r in res}), nranks,
+                N_BOMB, wall, ['%.3f' % r['wall'] for r in res], wall5,
+                wall / wall5, first['detected'], first['detected'] / N_BOMB,
+                frac5, int((first['channels'][0] < 1e8).sum()), per_rank,
+                ['%.3f' % x for x in first['daq_s']],
+                int((t_e < 1e8).sum()), call_s, card))
+        log('  host seconds by profiler region, rank by rank: %s'
+            % '; '.join(', '.join('%s %.3f' % kv
+                                  for kv in r['regions'].items())
+                        for r in res))
+        summary[backend] = dict(ranks=nranks, wall_s=wall,
+                                rank_wall_s=[r['wall'] for r in res],
+                                phase5_s=wall5, daq_s=first['daq_s'],
+                                launches=per_rank, call_s=call_s)
+    log('phase 11: backends run: %s' % ', '.join(summary))
+    return launches, summary
+
+
 def main(argv, work):
     import torch
     if not torch.cuda.is_available():
@@ -1835,6 +2009,10 @@ def main(argv, work):
                                                         out_dir)
     launches10f = phase_gdml(device, card, work)
 
+    # --- 11. photon sharding over the ranks of a process group
+    launches11, sharded = phase_sharded(loaded, work, card,
+                                        (len(hits) / N_BOMB, wall))
+
     if profile:
         profile_run('quick', lambda: run_main_path(sim, N_BOMB, 7), card,
                     profile)
@@ -1853,7 +2031,7 @@ def main(argv, work):
                  '9e cli profile': launches9e_prof,
                  '10c render': launches10c, '10d viewer': launches10d,
                  '10d hybrid': launches10h, '10e cli cam': launches10e,
-                 '10f gdml': launches10f}
+                 '10f gdml': launches10f, '11 sharded': launches11}
     log('visit-kernel launches per main path: %s' % json.dumps(per_phase))
     assert visit_kernel.thread_launches == thread_launches, \
         'a main path launched the first design'
@@ -1864,7 +2042,8 @@ def main(argv, work):
         same_photons_s=pair9b, tracked_s=wall_track,
         untracked_s=wall_plain, frame_s=wall10c, frame_ms=frame_ms,
         hybrid_s=wall10h,
-        cli_cam_s=wall10e, cli_cam_tool_s=inner10e, card=card)}))
+        cli_cam_s=wall10e, cli_cam_tool_s=inner10e, sharded=sharded,
+        card=card)}))
     log(json.dumps({'kernels': [{
         'name': 'visit_inst',
         'route': 'cuda',

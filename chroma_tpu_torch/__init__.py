@@ -32,5 +32,15 @@ from chroma_tpu_torch.loader import (  # noqa: F401
     load_geometry_from_string, create_geometry_from_obj, load_bvh)
 from chroma_tpu_torch.cache import Cache  # noqa: F401
 from chroma_tpu_torch.log import logger  # noqa: F401
-from chroma_tpu_torch.sim import Simulation  # noqa: F401
-from chroma_tpu_torch.likelihood import Likelihood  # noqa: F401
+
+
+def __getattr__(name):
+    # the device side loads on first use, so that host-only use (geometry
+    # building, caches, cli.geo, cli.bvh) starts no device library
+    if name == 'Simulation':
+        from chroma_tpu_torch.sim import Simulation
+        return Simulation
+    if name == 'Likelihood':
+        from chroma_tpu_torch.likelihood import Likelihood
+        return Likelihood
+    raise AttributeError('module %r has no attribute %r' % (__name__, name))

@@ -610,6 +610,55 @@ def _blas_rows(mesh, fanout, leaf_size, width, sah_threshold, codes,
     return rows, max_depth
 
 
+def upgrade_instanced_rows_v3(rows, fanout, leaf_size, packed):
+    """Upgrade a v3 instanced row table (bounds at col 0, separate
+    blas-root visit per instance entry) to the v4 layout (bounds at
+    INST_B0 on internal AND instance rows, instance rows embedding the
+    BLAS root's child bounds). Host numpy, one pass over the table —
+    lets v3 geometry caches load without the ~10 min re-mesh."""
+    rows = np.asarray(rows)
+    nrows, w_old = rows.shape
+    nw = 3 * fanout if packed else 6 * fanout
+    width = _pad8(max(INST_B0 + nw + 1, LEAF_STRIDE * leaf_size, 15) + 1)
+    tags = rows[:, w_old - 1].view(np.int32)
+    new = np.zeros((nrows, width), np.float32)
+    new[:, width - 1] = rows[:, w_old - 1]
+    internal = tags == TAG_INTERNAL
+    leaf = tags == TAG_LEAF
+    new[internal, INST_B0:INST_B0 + nw + 1] = rows[internal, 0:nw + 1]
+    new[leaf, :LEAF_STRIDE * leaf_size] = \
+        rows[leaf, :LEAF_STRIDE * leaf_size]
+
+    idx = np.flatnonzero(tags == TAG_INSTANCE)
+    new[idx, 0:12] = rows[idx, 0:12]          # rotation + displacement
+    new[idx, 12] = rows[idx, 13]              # tri_base
+    new[idx, 13] = rows[idx, 14]              # instance_id
+    roots = rows[idx, 12].view(np.int32)
+    ri = tags[roots] == TAG_INTERNAL
+    new[idx[ri], INST_B0:INST_B0 + nw + 1] = \
+        new[roots[ri], INST_B0:INST_B0 + nw + 1]
+    for j in np.flatnonzero(~ri):             # tiny-mesh leaf roots
+        blk = rows[roots[j], :LEAF_STRIDE * leaf_size] \
+            .reshape(leaf_size, LEAF_STRIDE)
+        used = blk[:, 9].view(np.int32) >= 0
+        v0 = blk[used, 0:3]
+        pts = np.concatenate([v0, v0 + blk[used, 3:6],
+                              v0 + blk[used, 6:9]], axis=0)
+        clo = np.full((fanout, 3), np.nan, np.float32)
+        chi = np.full((fanout, 3), np.nan, np.float32)
+        clo[0] = pts.min(axis=0)
+        chi[0] = pts.max(axis=0)
+        if packed:
+            new[idx[j], INST_B0:INST_B0 + nw] = \
+                _pack_bounds_words(clo, chi, fanout)
+        else:
+            new[idx[j], INST_B0:INST_B0 + nw] = np.concatenate(
+                [clo[:, 0], clo[:, 1], clo[:, 2],
+                 chi[:, 0], chi[:, 1], chi[:, 2]])
+        new[idx[j], INST_B0 + nw] = np.int32(roots[j]).view(np.float32)
+    return new
+
+
 def table_stats(rows, fanout, leaf_size, fmt='bf16'):
     """Tree-quality statistics of an instanced row table (host numpy): row
     counts by type, TLAS/BLAS split, mean/min children per internal node,

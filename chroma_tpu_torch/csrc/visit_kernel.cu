@@ -5,9 +5,11 @@
 // (:109-368; launched once per visit through visit_inst's pallas_call, with
 // the row gather left to XLA because Mosaic has no per-lane gather). The
 // contract is that of the plain PyTorch traversal
-// chroma_tpu_torch/ops/mesh_wide.py::traverse, bit for bit: no FMA
-// contraction (built with --fmad=false), IEEE division, NaN-propagating
-// min/max, the plain version's summation order and first-minimum ties.
+// chroma_tpu_torch/ops/mesh_wide.py::traverse, bit for bit: no implicit FMA
+// contraction (built with --fmad=false) but explicit fmaf exactly where the
+// plain version fuses (the instance rotation, the triangle test and its
+// normal: cross_term, dot3), IEEE division, NaN-propagating min/max, the
+// plain version's summation order and first-minimum ties.
 //
 // What bounds it. A query of N rays reads each row it visits once (R' of
 // the table's R rows of W f32 words; they then stay in the 50 MB L2), 24
@@ -109,6 +111,19 @@ __device__ __forceinline__ float nmax(float a, float b) {
 }
 
 __device__ __forceinline__ int as_int(float x) { return __float_as_int(x); }
+
+// a*b - c*d and a*b + c*d + e*f rounded as the plain version rounds them
+// (ops/mesh_wide.py _cross_term, _dot3), which is how XLA's CPU code
+// contracts them
+__device__ __forceinline__ float cross_term(float a, float b, float c,
+                                            float d) {
+    return fmaf(a, b, -(c * d));
+}
+
+__device__ __forceinline__ float dot3(float a, float b, float c, float d,
+                                      float e, float f) {
+    return fmaf(e, f, fmaf(a, b, c * d));
+}
 
 // the same NaN propagation in one instruction each (sm_80+). They may differ
 // from nmin / nmax only on zeros of opposite sign, which compare equal; the
@@ -338,10 +353,10 @@ __device__ __forceinline__ void walk_ray(const Query& q, int i, int gl,
             const float wdx = w_d[0], wdy = w_d[1], wdz = w_d[2];
 #pragma unroll
             for (int r = 0; r < 3; ++r) {
-                entered[r] = row[3 * r] * px + row[3 * r + 1] * py
-                    + row[3 * r + 2] * pz;
-                entered[3 + r] = row[3 * r] * wdx + row[3 * r + 1] * wdy
-                    + row[3 * r + 2] * wdz;
+                entered[r] = dot3(row[3 * r], px, row[3 * r + 1], py,
+                                  row[3 * r + 2], pz);
+                entered[3 + r] = dot3(row[3 * r], wdx, row[3 * r + 1], wdy,
+                                      row[3 * r + 2], wdz);
             }
             slab_frame(entered, entered + 3, e_inv, e_neg);
         }
@@ -389,19 +404,19 @@ __device__ __forceinline__ void walk_ray(const Query& q, int i, int gl,
             const int tri = as_int(tr[9]);
             const int code = as_int(tr[10]);
             const int tri_g = tri + tbase;
-            const float hx = dv[1] * e2z - dv[2] * e2y;
-            const float hy = dv[2] * e2x - dv[0] * e2z;
-            const float hz = dv[0] * e2y - dv[1] * e2x;
-            const float a = e1x * hx + e1y * hy + e1z * hz;
+            const float hx = cross_term(dv[1], e2z, dv[2], e2y);
+            const float hy = cross_term(dv[2], e2x, dv[0], e2z);
+            const float hz = cross_term(dv[0], e2y, dv[1], e2x);
+            const float a = dot3(e1x, hx, e1y, hy, e1z, hz);
             const bool parallel = fabsf(a) <= FLT_EPS;
             const float finv = 1.0f / (parallel ? 1.0f : a);
             const float sx = o[0] - v0x, sy = o[1] - v0y, sz = o[2] - v0z;
-            const float u = finv * (sx * hx + sy * hy + sz * hz);
-            const float qx = sy * e1z - sz * e1y;
-            const float qy = sz * e1x - sx * e1z;
-            const float qz = sx * e1y - sy * e1x;
-            const float v = finv * (dv[0] * qx + dv[1] * qy + dv[2] * qz);
-            const float t = finv * (e2x * qx + e2y * qy + e2z * qz);
+            const float u = finv * dot3(sx, hx, sy, hy, sz, hz);
+            const float qx = cross_term(sy, e1z, sz, e1y);
+            const float qy = cross_term(sz, e1x, sx, e1z);
+            const float qz = cross_term(sx, e1y, sy, e1x);
+            const float v = finv * dot3(dv[0], qx, dv[1], qy, dv[2], qz);
+            const float t = finv * dot3(e2x, qx, e2y, qy, e2z, qz);
             const bool ok = slot && !parallel && u >= NEG_EPS
                 && u <= ONE_EPS && v >= NEG_EPS && u + v <= ONE_EPS
                 && t > EPS && isfinite(t) && tri >= 0 && tri_g != excl;
@@ -411,9 +426,9 @@ __device__ __forceinline__ void walk_ray(const Query& q, int i, int gl,
                                         &least);
             const float t_b = __uint_as_float(least);
             if (t_b < b_d) {
-                const float n0 = e1y * e2z - e1z * e2y;
-                const float n1 = e1z * e2x - e1x * e2z;
-                const float n2 = e1x * e2y - e1y * e2x;
+                const float n0 = cross_term(e1y, e2z, e1z, e2y);
+                const float n1 = cross_term(e1z, e2x, e1x, e2z);
+                const float n2 = cross_term(e1x, e2y, e1y, e2x);
                 b_d = t_b;
                 b_tri = __shfl_sync(gm, tri_g, kb, G);
                 b_code = __shfl_sync(gm, code, kb, G);
@@ -607,10 +622,10 @@ visit_thread_kernel(const float* __restrict__ rows, int width, int leaf_size,
             const float pz = world[2] - row[11];
 #pragma unroll
             for (int r = 0; r < 3; ++r) {
-                entered[r] = row[3 * r] * px + row[3 * r + 1] * py
-                    + row[3 * r + 2] * pz;
-                entered[3 + r] = row[3 * r] * world[3]
-                    + row[3 * r + 1] * world[4] + row[3 * r + 2] * world[5];
+                entered[r] = dot3(row[3 * r], px, row[3 * r + 1], py,
+                                  row[3 * r + 2], pz);
+                entered[3 + r] = dot3(row[3 * r], world[3], row[3 * r + 1],
+                                      world[4], row[3 * r + 2], world[5]);
             }
 #pragma unroll
             for (int j = 0; j < 3; ++j) {
@@ -701,19 +716,19 @@ visit_thread_kernel(const float* __restrict__ rows, int width, int leaf_size,
                 const int tri = as_int(tr[9]);
                 const int code = as_int(tr[10]);
                 const int tri_g = tri + tbase;
-                const float hx = dv[1] * e2z - dv[2] * e2y;
-                const float hy = dv[2] * e2x - dv[0] * e2z;
-                const float hz = dv[0] * e2y - dv[1] * e2x;
-                const float a = e1x * hx + e1y * hy + e1z * hz;
+                const float hx = cross_term(dv[1], e2z, dv[2], e2y);
+                const float hy = cross_term(dv[2], e2x, dv[0], e2z);
+                const float hz = cross_term(dv[0], e2y, dv[1], e2x);
+                const float a = dot3(e1x, hx, e1y, hy, e1z, hz);
                 const bool parallel = fabsf(a) <= FLT_EPS;
                 const float finv = 1.0f / (parallel ? 1.0f : a);
                 const float sx = o[0] - v0x, sy = o[1] - v0y, sz = o[2] - v0z;
-                const float u = finv * (sx * hx + sy * hy + sz * hz);
-                const float qx = sy * e1z - sz * e1y;
-                const float qy = sz * e1x - sx * e1z;
-                const float qz = sx * e1y - sy * e1x;
-                const float v = finv * (dv[0] * qx + dv[1] * qy + dv[2] * qz);
-                const float t = finv * (e2x * qx + e2y * qy + e2z * qz);
+                const float u = finv * dot3(sx, hx, sy, hy, sz, hz);
+                const float qx = cross_term(sy, e1z, sz, e1y);
+                const float qy = cross_term(sz, e1x, sx, e1z);
+                const float qz = cross_term(sx, e1y, sy, e1x);
+                const float v = finv * dot3(dv[0], qx, dv[1], qy, dv[2], qz);
+                const float t = finv * dot3(e2x, qx, e2y, qy, e2z, qz);
                 const bool ok = !parallel && u >= NEG_EPS && u <= ONE_EPS
                     && v >= NEG_EPS && u + v <= ONE_EPS && t > EPS
                     && isfinite(t) && tri >= 0 && tri_g != excl;
@@ -721,9 +736,9 @@ visit_thread_kernel(const float* __restrict__ rows, int width, int leaf_size,
                     b_d = t;
                     b_tri = tri_g;
                     b_code = code;
-                    b_n[0] = e1y * e2z - e1z * e2y;
-                    b_n[1] = e1z * e2x - e1x * e2z;
-                    b_n[2] = e1x * e2y - e1y * e2x;
+                    b_n[0] = cross_term(e1y, e2z, e1z, e2y);
+                    b_n[1] = cross_term(e1z, e2x, e1x, e2z);
+                    b_n[2] = cross_term(e1x, e2y, e1y, e2x);
                     b_iid = iid;
                 }
             }

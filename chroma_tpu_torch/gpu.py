@@ -126,7 +126,8 @@ class GPUPhotons(object):
 
     def get_flat_hits(self, gpu_geometry):
         """Photons detected by channels: counted and front-packed on the
-        device, then one transfer of the detected minority (reference:
+        device, where they stay (a LazyHits) until a field is read, then
+        one transfer of the detected minority (reference:
         gpu/photon.py:141-209)."""
         return daq_ops.extract_flat_hits(self.state, gpu_geometry.arrays)
 

@@ -117,15 +117,17 @@ def save_geometry_arrays(path, ga):
 def load_geometry_arrays(path, lean=False):
     """Load a GeometryArrays saved by either package's
     save_geometry_arrays, as CPU tensors (None when the files are missing
-    or of another format version; a version-3 cache is upgraded only by
-    chroma_tpu, so it is rebuilt). With lean=True the per-triangle world
-    arrays of an instanced geometry are dropped before conversion."""
+    or of another format version). A version-3 cache's instanced table is
+    upgraded to the version-4 layout on the host, as chroma_tpu's loader
+    does (bvh.wide.upgrade_instanced_rows_v3), instead of a re-mesh. With
+    lean=True the per-triangle world arrays of an instanced geometry are
+    dropped before conversion."""
     if not (os.path.exists(path + '.npz')
             and os.path.exists(path + '.json')):
         return None
     with open(path + '.json') as f:
         meta = json.load(f)
-    if meta.get('__version__') != FORMAT_VERSION:
+    if meta.get('__version__') not in (3, FORMAT_VERSION):
         return None
     if meta.get('ga.wide.__class__') != 'InstancedBVH':
         raise NotImplementedError('the torch port traverses instanced wide '
@@ -134,6 +136,11 @@ def load_geometry_arrays(path, lean=False):
         arrays = {k: zf[k] for k in zf.files
                   if not (lean and 'ga.inst.__class__' in meta
                           and k in _SOUP_KEYS)}
+    if meta['__version__'] == 3:
+        arrays['ga.wide.rows'] = W.upgrade_instanced_rows_v3(
+            arrays['ga.wide.rows'], int(meta['ga.wide.fanout'][1]),
+            int(meta['ga.wide.leaf_size'][1]),
+            bool(meta.get('ga.wide.packed', [None, False])[1]))
     if lean and 'ga.inst.__class__' in meta:
         meta.update({k: None for k in _SOUP_KEYS})
     stats, fanout = _table_stats(arrays, meta)

@@ -97,11 +97,9 @@ def load_bvh(geometry, bvh_name='default', auto_build_bvh=True,
     return bvh
 
 
-def create_geometry_from_obj(obj, bvh_name='default', auto_build_bvh=True,
-                             read_bvh_cache=True, update_bvh_cache=True,
-                             cache_dir=None):
+def as_flat_geometry(obj):
     """Wrap a Detector/Geometry/Solid/Mesh (or a callable returning one) in
-    a flattened Geometry with a BVH attached."""
+    a flattened Geometry; its BVH is left as it was."""
     if callable(obj):
         obj = obj()
 
@@ -117,7 +115,15 @@ def create_geometry_from_obj(obj, bvh_name='default', auto_build_bvh=True,
         raise TypeError('cannot build type %s' % type(obj))
 
     geometry.flatten()
+    return geometry
 
+
+def create_geometry_from_obj(obj, bvh_name='default', auto_build_bvh=True,
+                             read_bvh_cache=True, update_bvh_cache=True,
+                             cache_dir=None):
+    """Wrap a Detector/Geometry/Solid/Mesh (or a callable returning one) in
+    a flattened Geometry with a BVH attached."""
+    geometry = as_flat_geometry(obj)
     if geometry.bvh is None:
         geometry.bvh = load_bvh(geometry, bvh_name=bvh_name,
                                 auto_build_bvh=auto_build_bvh,

@@ -4,7 +4,8 @@ chroma_tpu.ops.daq).
 Per channel: the earliest hit time is a scatter_reduce 'amin', the charge
 a scatter_add of integer counts of charge_unit (so the order in which the
 device adds them cannot change the sum), and the history an OR built from
-a per-bit 'amax'.
+a per-bit 'amax'. Flat hits are counted and packed on the device and stay
+there, in a LazyHits, until a field is read.
 """
 from __future__ import annotations
 
@@ -168,12 +169,103 @@ def flat_hit_pack(state, geometry):
     return channel, perm, n_det
 
 
-def extract_flat_hits(state, geometry):
-    """Detected photons as a host event.Photons with channels: device count
-    and front-pack, then one transfer of the detected minority."""
-    from chroma_tpu_torch.ops.propagate import photon_state_to_host
+def gather_hits(state, channel, perm, m):
+    """The first `m` lanes of the front-pack `perm` (flat_hit_pack): (an
+    m-lane PhotonState, their channels); lanes past the detected count
+    are undetected filler with channel -1."""
+    sel = perm[:m]
+    return state.map(lambda a: a[sel]), channel[sel]
+
+
+def flat_hit_gather(state, geometry, m):
+    """Pack and gather at once: (the m-lane state of gather_hits, its
+    channels (m,), the detected count as a 0-d tensor)."""
     channel, perm, n_det = flat_hit_pack(state, geometry)
-    sel = perm[:int(n_det)]
-    sub = state.map(lambda a: a[sel])
-    return photon_state_to_host(
-        sub, channel=channel[sel].cpu().numpy().astype(np.uint32))
+    sub, ch = gather_hits(state, channel, perm, m)
+    return sub, ch, n_det
+
+
+class LazyHits(event.Photons):
+    """Flat hits that stay on the device until a field is read.
+
+    Holds the packed detected lanes (a PhotonState and their channels) on
+    the device; len() is free, and the first read of a photon field copies
+    every field to the host in one pass, after which the object is an
+    ordinary Photons. Pickling ships a plain Photons. (The counterpart of
+    chroma_tpu.ops.daq.LazyHits; the port gathers exactly the detected
+    lanes, so no gather width is learned.)"""
+
+    _FIELDS = ('pos', 'dir', 'pol', 'wavelengths', 't',
+               'last_hit_triangles', 'flags', 'weights', 'evidx',
+               'channel')
+
+    def __init__(self, sub_state, channel_dev, n_det):
+        # Photons.__init__ is not called: the fields stay unset, so
+        # __getattr__ sees their first read
+        self._dev = (sub_state, channel_dev)
+        self._n = int(n_det)
+
+    def device_state(self):
+        """(PhotonState, channel) of the packed hits on the device, or None
+        once they were copied to the host."""
+        return self._dev
+
+    def _materialize(self):
+        from chroma_tpu_torch.ops.propagate import photon_state_to_host
+        sub, ch = self._dev
+        host = photon_state_to_host(sub, channel=np.maximum(
+            ch.cpu().numpy(), 0).astype(np.uint32))[:self._n]
+        for f in self._FIELDS:
+            setattr(self, f, getattr(host, f))
+        self._dev = None
+
+    def __getattr__(self, name):
+        # reached only when normal lookup fails: a field's first read
+        if name in LazyHits._FIELDS and \
+                self.__dict__.get('_dev') is not None:
+            self._materialize()
+            return getattr(self, name)
+        raise AttributeError(name)
+
+    def __len__(self):
+        return self._n
+
+    def __reduce__(self):
+        if self.__dict__.get('_dev') is not None:
+            self._materialize()
+        return (event.Photons,
+                tuple(getattr(self, f) for f in LazyHits._FIELDS))
+
+
+def extract_flat_hits(state, geometry):
+    """Detected photons as flat hits with channels: a count and front-pack
+    on the device (one sync for the count), the detected lanes gathered
+    there and kept there in a LazyHits until a field is read
+    (reference: gpu/photon.py:141-209, count -> alloc -> copy)."""
+    channel, perm, n_det = flat_hit_pack(state, geometry)
+    n = int(n_det)
+    sub, ch = gather_hits(state, channel, perm, n)
+    return LazyHits(sub, ch, n)
+
+
+def propagate_with_hits(state, geometry, seed, max_steps=100,
+                        step_chunk='auto'):
+    """Propagate a PhotonState (ops.propagate.propagate with `seed`) and
+    extract its flat hits: (final PhotonState, LazyHits)."""
+    from chroma_tpu_torch.ops.propagate import propagate
+    result = propagate(state, geometry, seed, max_steps=max_steps,
+                       step_chunk=step_chunk)
+    return result, extract_flat_hits(result, geometry)
+
+
+def photon_channels(photons_host, solid_id, solid_id_to_channel_index):
+    """Channel index of each detected photon, -1 otherwise, on the host
+    (host helper of flat-hit extraction; reference:
+    propagate.cu:172-251)."""
+    tri = photons_host.last_hit_triangles
+    valid = tri > -1
+    solid = solid_id[np.maximum(tri, 0)]
+    channel = solid_id_to_channel_index[solid]
+    detected = (valid & (channel >= 0)
+                & ((photons_host.flags & np.uint32(SURFACE_DETECT)) != 0))
+    return np.where(detected, channel, -1).astype(np.int32)

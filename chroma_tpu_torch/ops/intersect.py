@@ -1,15 +1,37 @@
 """Ray-primitive intersection tests, branchless and batched (counterpart
 of chroma_tpu.ops.intersect; device analog of chroma/cuda/intersect.h):
 the scalar early-out tests become mask algebra over whole ray batches.
+
+The products and sums round as XLA compiles the JAX package's tests on
+the CPU, where `a*b + c` becomes one fused multiply-add (`_cross`, `_dot`,
+the slab planes): where a ray runs along an edge shared by two triangles,
+both give the same distance to the last ulp, and that rounding decides
+which triangle is hit.
 """
 from __future__ import annotations
 
 import torch
 
-from chroma_tpu_torch.ops.linalg import dot, cross
+from chroma_tpu_torch.ops.linalg import fma
 
 EPSILON = 1e-6       # reference: CHROMA_EPSILON
 FLT_EPSILON = 1.19209290e-07
+
+
+def _cross(a, b):
+    "cross(a, b), each component rounded as fma(a_i, b_j, -(a_j * b_i))."
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([fma(ay, bz, -(az * by)),
+                        fma(az, bx, -(ax * bz)),
+                        fma(ax, by, -(ay * bx))], dim=-1)
+
+
+def _dot(a, b):
+    """sum(a * b) over the last axis, rounded as fma(a2, b2, fma(a1, b1,
+    a0 * b0))."""
+    return fma(a[..., 2], b[..., 2],
+               fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
 
 
 def intersect_triangle(origin, direction, v0, v1, v2):
@@ -21,15 +43,15 @@ def intersect_triangle(origin, direction, v0, v1, v2):
     """
     edge1 = v1 - v0
     edge2 = v2 - v0
-    h = cross(direction, edge2)
-    a = dot(edge1, h)
+    h = _cross(direction, edge2)
+    a = _dot(edge1, h)
     parallel = torch.abs(a) <= FLT_EPSILON
     f = 1.0 / torch.where(parallel, 1.0, a)
     s = origin - v0
-    u = f * dot(s, h)
-    q = cross(s, edge1)
-    v = f * dot(direction, q)
-    t = f * dot(edge2, q)
+    u = f * _dot(s, h)
+    q = _cross(s, edge1)
+    v = f * _dot(direction, q)
+    t = f * _dot(edge2, q)
 
     hit = (~parallel
            & (u >= -EPSILON) & (u <= 1.0 + EPSILON)
@@ -52,8 +74,8 @@ def intersect_box(origin, neg_origin_inv_dir, inv_dir, lower, upper):
     inf = torch.inf
     finite = torch.isfinite(inv_dir)
     contained = (origin >= lower) & (origin <= upper)
-    t0 = lower * inv_dir + neg_origin_inv_dir
-    t1 = upper * inv_dir + neg_origin_inv_dir
+    t0 = fma(lower, inv_dir, neg_origin_inv_dir)
+    t1 = fma(upper, inv_dir, neg_origin_inv_dir)
     tsmall = torch.where(finite, torch.minimum(t0, t1),
                          torch.where(contained, -inf, inf))
     tbig = torch.where(finite, torch.maximum(t0, t1),

@@ -12,11 +12,26 @@ def dot(a, b):
 
 
 def fma(a, b, c):
-    """a * b + c rounded once to f32, as a fused multiply-add (a product
-    of two f32 values is exact in f64). The JAX package's CPU build
-    contracts some `x * y + z` this way, and where rounding decides a
-    discrete outcome the port does the same."""
-    return (a.double() * b.double() + c.double()).float()
+    """a * b + c of f32 tensors rounded once to f32, as a fused
+    multiply-add. The JAX package's CPU build contracts some `x * y + z`
+    this way, and where rounding decides a discrete outcome the port does
+    the same.
+
+    The product is exact in f64 and the sum s rounds once there, with an
+    exact residual err (p + c == s + err). Rounding s to f32 rounds a
+    second time, which is wrong only where s lies on the midpoint of two
+    f32 values r and o and err points past it towards o: then o is the
+    answer."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    z = s - p
+    err = (p - (s - z)) + (c - z)
+    r = s.float()
+    d = s - r.double()
+    o = r.double() + 2.0 * d  # an f32 value only when s is a midpoint
+    o32 = o.float()
+    return torch.where((err * d > 0) & (o32.double() == o), o32, r)
 
 
 def cross(a, b):

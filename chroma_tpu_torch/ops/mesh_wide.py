@@ -17,6 +17,14 @@ reach bit 31 are done in int64 and wrapped back. The per-child and
 per-triangle loops of the JAX body become (N, F) and (N, K) tensors: the
 nearest child and the closest triangle are the first minimum, which is
 what the sequential strict-less scans select.
+
+The instance entry's rotation, the triangle test and its normal round as
+XLA compiles them on the CPU, where `a*b + c` becomes one fused
+multiply-add (`_cross_term`, `_dot3`): where a ray runs along an edge
+shared by two triangles, both tests give the same distance to the last
+ulp, and that rounding decides which triangle is hit. With it the walk
+gives JAX's triangle ids, distances, codes and normals bit for bit on
+demo.tiny() from the camera's default pose (tests/test_torch_render.py).
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch
 from chroma_tpu_torch.bvh.wide import (TAG_INTERNAL, TAG_LEAF, TAG_INSTANCE,
                                        INST_B0, LEAF_STRIDE, bounds_cols,
                                        fmt_of)
+from chroma_tpu_torch.ops.linalg import fma
 
 EPSILON = 1e-6
 FLT_EPSILON = 1.19209290e-07
@@ -55,6 +64,18 @@ def _ctz32_i32(m):
     low = (u & -u).to(torch.float32)
     e = ((low.view(torch.int32) >> 23) & 0xFF) - 127
     return torch.where(m == 0, 32, e).to(torch.int32)
+
+
+def _cross_term(a, b, c, d):
+    """a*b - c*d rounded as XLA's CPU code rounds it, a fused multiply-add
+    of a*b and -(c*d), so that a tie at a shared edge goes the JAX way."""
+    return fma(a, b, -(c * d))
+
+
+def _dot3(a, b, c, d, e, f):
+    """a*b + c*d + e*f as XLA's CPU code rounds it: fma(e, f, fma(a, b,
+    c*d))."""
+    return fma(e, f, fma(a, b, c * d))
 
 
 def _child_bounds(gi, g, f, fmt, b0):
@@ -126,19 +147,19 @@ def _leaf_sweep(g, gi, k, org, dirn, last_hit, active, tbase, iid, best):
     tri_g = tri + tbase[:, None]
     ox, oy, oz = org[:, 0:1], org[:, 1:2], org[:, 2:3]
     dx, dy, dz = dirn[:, 0:1], dirn[:, 1:2], dirn[:, 2:3]
-    hx = dy * e2z - dz * e2y
-    hy = dz * e2x - dx * e2z
-    hz = dx * e2y - dy * e2x
-    a = e1x * hx + e1y * hy + e1z * hz
+    hx = _cross_term(dy, e2z, dz, e2y)
+    hy = _cross_term(dz, e2x, dx, e2z)
+    hz = _cross_term(dx, e2y, dy, e2x)
+    a = _dot3(e1x, hx, e1y, hy, e1z, hz)
     parallel = torch.abs(a) <= FLT_EPSILON
     finv = 1.0 / torch.where(parallel, 1.0, a)
     sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
-    u = finv * (sx * hx + sy * hy + sz * hz)
-    qx = sy * e1z - sz * e1y
-    qy = sz * e1x - sx * e1z
-    qz = sx * e1y - sy * e1x
-    v = finv * (dx * qx + dy * qy + dz * qz)
-    t = finv * (e2x * qx + e2y * qy + e2z * qz)
+    u = finv * _dot3(sx, hx, sy, hy, sz, hz)
+    qx = _cross_term(sy, e1z, sz, e1y)
+    qy = _cross_term(sz, e1x, sx, e1z)
+    qz = _cross_term(sx, e1y, sy, e1x)
+    v = finv * _dot3(dx, qx, dy, qy, dz, qz)
+    t = finv * _dot3(e2x, qx, e2y, qy, e2z, qz)
     ok = (~parallel
           & (u >= -EPSILON) & (u <= 1.0 + EPSILON)
           & (v >= -EPSILON) & (u + v <= 1.0 + EPSILON)
@@ -157,9 +178,9 @@ def _leaf_sweep(g, gi, k, org, dirn, last_hit, active, tbase, iid, best):
     closer = t_b < b_d
     e1 = [at(e1x), at(e1y), at(e1z)]
     e2 = [at(e2x), at(e2y), at(e2z)]
-    nrm = torch.stack([e1[1] * e2[2] - e1[2] * e2[1],
-                       e1[2] * e2[0] - e1[0] * e2[2],
-                       e1[0] * e2[1] - e1[1] * e2[0]], dim=1)
+    nrm = torch.stack([_cross_term(e1[1], e2[2], e1[2], e2[1]),
+                       _cross_term(e1[2], e2[0], e1[0], e2[2]),
+                       _cross_term(e1[0], e2[1], e1[1], e2[0])], dim=1)
     return (torch.where(closer, at(tri_g), b_tri),
             torch.where(closer, t_b, b_d),
             torch.where(closer, at(code), b_code),
@@ -244,12 +265,12 @@ def traverse(inst, origin, direction, last_hit=None, mask=None,
         pz = w_a[:, 2] - g[:, 11]
         wdx, wdy, wdz = w_a[:, 3], w_a[:, 4], w_a[:, 5]
         entered = torch.stack(
-            [g[:, 0] * px + g[:, 1] * py + g[:, 2] * pz,
-             g[:, 3] * px + g[:, 4] * py + g[:, 5] * pz,
-             g[:, 6] * px + g[:, 7] * py + g[:, 8] * pz,
-             g[:, 0] * wdx + g[:, 1] * wdy + g[:, 2] * wdz,
-             g[:, 3] * wdx + g[:, 4] * wdy + g[:, 5] * wdz,
-             g[:, 6] * wdx + g[:, 7] * wdy + g[:, 8] * wdz], dim=1)
+            [_dot3(g[:, 0], px, g[:, 1], py, g[:, 2], pz),
+             _dot3(g[:, 3], px, g[:, 4], py, g[:, 5], pz),
+             _dot3(g[:, 6], px, g[:, 7], py, g[:, 8], pz),
+             _dot3(g[:, 0], wdx, g[:, 1], wdy, g[:, 2], wdz),
+             _dot3(g[:, 3], wdx, g[:, 4], wdy, g[:, 5], wdz),
+             _dot3(g[:, 6], wdx, g[:, 7], wdy, g[:, 8], wdz)], dim=1)
         sweep_loc = torch.where(is_inst[:, None], entered, loc_a)
         o_cc, d_cc = sweep_loc[:, 0:3], sweep_loc[:, 3:6]
         inv = safe_inv(d_cc)

@@ -47,6 +47,34 @@ def uniform(u, low=0.0, high=1.0):
     return high - u * (high - low)
 
 
+def _sphere(theta, u):
+    """Unit vectors (..., 3) from azimuths theta and cosines u
+    (reference: random.h:17-25)."""
+    c = torch.sqrt(torch.clamp(1.0 - u * u, min=0.0))
+    return torch.stack([c * torch.cos(theta), c * torch.sin(theta), u],
+                       dim=-1)
+
+
+def uniform_sphere(generator, shape, device=None):
+    """Isotropic unit vectors, shape (*shape, 3), from two U[0, 1) draws of
+    `generator` (on its device unless `device` is given) (counterpart of
+    chroma_tpu.ops.sample.uniform_sphere)."""
+    device = generator.device if device is None else device
+    theta, u = (torch.rand(shape, generator=generator, device=device,
+                           dtype=torch.float32) for _ in range(2))
+    return _sphere(uniform(theta, 0.0, 2.0 * math.pi), uniform(u, -1.0, 1.0))
+
+
+def exponential(generator, shape, scale, device=None):
+    """Exponentially distributed distances with per-lane `scale`, from one
+    U[0, 1) draw of `generator` mapped to (0, 1] (counterpart of
+    chroma_tpu.ops.sample.exponential)."""
+    device = generator.device if device is None else device
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return -scale * torch.log(uniform(u))
+
+
 def sample_cdf_pairs(u, cdf_x, cdf_y):
     """Inverse-CDF draw from a shared (cdf_x, cdf_y) table: linear
     interpolation of u against cdf_y, with jnp.interp's edge and tie rules
@@ -144,7 +172,4 @@ class DrawPool:
         """Isotropic unit vectors (N, 3) from two pooled draws
         (reference: random.h:17-25)."""
         theta = self.draw(0.0, 2.0 * math.pi)
-        u = self.draw(-1.0, 1.0)
-        c = torch.sqrt(torch.clamp(1.0 - u * u, min=0.0))
-        return torch.stack([c * torch.cos(theta), c * torch.sin(theta), u],
-                           dim=-1)
+        return _sphere(theta, self.draw(-1.0, 1.0))

@@ -180,6 +180,10 @@ class GeometryArrays:
     def has_wireplanes(self):
         return self.wireplanes is not None
 
+    @property
+    def has_detector(self):
+        return self.detector is not None
+
 
 def _interp_property(prop, grid):
     "Resample a (wavelength, value) pair table onto a uniform grid."

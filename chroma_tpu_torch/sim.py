@@ -21,8 +21,8 @@ import numpy as np
 import torch
 
 from chroma_tpu_torch import event, itertoolset
-from chroma_tpu_torch.detector import Detector
-from chroma_tpu_torch.geometry import Geometry, Mesh, Solid, vacuum
+from chroma_tpu_torch.loader import as_flat_geometry, create_geometry_from_obj
+from chroma_tpu_torch.log import logger
 from chroma_tpu_torch.ops import daq as daq_ops
 from chroma_tpu_torch.ops import pdf as pdf_ops
 from chroma_tpu_torch.ops.photon import PhotonState
@@ -42,62 +42,60 @@ def pick_seed():
     return (int(time.time()) ^ (os.getpid() << 16)) & (2 ** 32 - 1)
 
 
-def _as_geometry(obj):
-    """A flattened Geometry from a Detector/Geometry/Solid/Mesh or a
-    callable returning one, from the port's own host modules
-    (loader.create_geometry_from_obj without the classic BVH, which the
-    device path does not use)."""
-    if callable(obj):
-        obj = obj()
-    if isinstance(obj, (Detector, Geometry)):
-        geometry = obj
-    elif isinstance(obj, Solid):
-        geometry = Geometry()
-        geometry.add_solid(obj)
-    elif isinstance(obj, Mesh):
-        geometry = Geometry()
-        geometry.add_solid(Solid(obj, vacuum, vacuum, color=0x33ffffff))
-    else:
-        raise TypeError('cannot build type %s' % type(obj))
-    if not hasattr(geometry, 'mesh'):
-        geometry.flatten()
-    return geometry
-
-
 class Simulation:
     def __init__(self, detector, seed=None, photon_tracking=False,
                  wavelengths=None, times=None, mesh=None, n_devices=None,
-                 device='cuda', gpu_geometry=None, geometry_arrays=None,
+                 device=None, gpu_geometry=None, geometry_arrays=None,
                  step_chunk='auto', **compat_kwargs):
-        """Create a simulation around a Geometry/Detector on `device`.
+        """Create a simulation around a Geometry/Detector on `device`
+        (default 'cuda', or the mesh's device).
 
         gpu_geometry (chroma_tpu.Simulation's name) or geometry_arrays:
         prebuilt chroma_tpu_torch GeometryArrays (from the geocache, or
         ops.types.from_jax_arrays of a JAX build), which skips the host
-        build. step_chunk: steps per chunk between compactions ('auto' or
-        an int). photon_tracking: record every photon's state after every
-        step in Event.photon_tracks. The reference-only options
-        (cuda_device, nthreads_per_block, max_blocks) are absorbed in
-        compat_kwargs so call sites port unchanged. mesh / n_devices
-        (multi-chip) are not ported yet. Raises RuntimeError for a CUDA
-        device when none is present."""
-        if mesh is not None or n_devices is not None:
-            raise NotImplementedError(
-                'mesh / n_devices: multi-GPU propagation is not ported yet '
-                '(ROADMAP.md item 15)')
-        self.device = torch.device(device)
+        build. Without them, `detector` (a Detector, Geometry, Solid, Mesh
+        or a callable returning one) is flattened, and if it has no classic
+        BVH it gets the one loader.create_geometry_from_obj loads or builds
+        (through the port's cache), when `Simulation.detector` is first
+        read: the device path never reads it. step_chunk: steps per chunk
+        between compactions ('auto' or an int). photon_tracking: record
+        every photon's state after every step in Event.photon_tracks. The
+        reference-only options (cuda_device, nthreads_per_block,
+        max_blocks) are absorbed in compat_kwargs so call sites port
+        unchanged.
+
+        mesh (a parallel.PhotonMesh) / n_devices (parallel.photon_mesh's
+        argument): propagate sharded over the ranks of a torch.distributed
+        process group (chroma_tpu_torch.parallel), the geometry replicated;
+        every rank makes the Simulation and calls simulate with the same
+        events, and gets the same events back. Batches that do not divide
+        the mesh are padded with dead lanes. Outside a process group this
+        raises. Raises RuntimeError for a CUDA device when none is
+        present."""
+        if mesh is None and n_devices is not None:
+            from chroma_tpu_torch.parallel import photon_mesh
+            mesh = photon_mesh(n_devices, device=device)
+        if mesh is not None and device is not None:
+            want = torch.device(device)
+            if want.type != mesh.device.type or \
+                    want.index not in (None, mesh.device.index):
+                raise ValueError('device %r is not the mesh\'s device %s'
+                                 % (str(device), mesh.device))
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else torch.device(device or 'cuda')
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('device %r requested but CUDA is not '
-                               'available' % str(device))
+                               'available' % str(self.device))
         if geometry_arrays is None:
             geometry_arrays = gpu_geometry
         self.step_chunk = step_chunk
+        self._bvh_wanted = geometry_arrays is None
         if geometry_arrays is None:
-            self.detector = _as_geometry(detector)
-            geometry_arrays = build_geometry_arrays(self.detector,
-                                                    wavelengths, times)
-        else:
-            self.detector = detector
+            detector = as_flat_geometry(detector)
+            geometry_arrays = build_geometry_arrays(detector, wavelengths,
+                                                    times)
+        self._detector = detector
         self.gpu_geometry = geometry_arrays.to(self.device)
         self.photon_tracking = photon_tracking
         self.seed = pick_seed() if seed is None else int(seed)
@@ -105,6 +103,14 @@ class Simulation:
         self._batch = 0
         self._kernel = None
         self._pdf = None
+
+    @property
+    def detector(self):
+        "The geometry simulated, with its classic BVH (see __init__)."
+        if self._bvh_wanted:
+            self._bvh_wanted = False
+            self._detector = create_geometry_from_obj(self._detector)
+        return self._detector
 
     def _next_seed(self):
         "(seed, counter) of the next propagation's random streams."
@@ -179,14 +185,30 @@ class Simulation:
         batch_seed = self._next_seed()
 
         tracking = None
+        if self.mesh is not None and self.photon_tracking:
+            # tracking snapshots every chunk by lane; the sharded driver
+            # has no such boundary, so tracking runs on this rank alone
+            logger.warning('photon_tracking=True: ignoring mesh=%s and '
+                           'propagating single-device', self.mesh)
         with profiler.region('sim.propagate'):
-            result = propagate(state, self.gpu_geometry, batch_seed,
-                               max_steps=max_steps,
-                               step_chunk=1 if self.photon_tracking
-                               else self.step_chunk,
-                               track_steps=self.photon_tracking)
-        if self.photon_tracking:
-            result, tracking = result
+            if self.mesh is not None and not self.photon_tracking:
+                from chroma_tpu_torch.parallel import (pad_to_mesh,
+                                                       propagate_sharded)
+                padded, true_n = pad_to_mesh(state, self.mesh)
+                result = propagate_sharded(padded, self.gpu_geometry,
+                                           batch_seed, max_steps=max_steps,
+                                           mesh=self.mesh,
+                                           step_chunk=self.step_chunk)
+                if len(result) != true_n:
+                    result = result.map(lambda a: a[:true_n])
+            else:
+                result = propagate(state, self.gpu_geometry, batch_seed,
+                                   max_steps=max_steps,
+                                   step_chunk=1 if self.photon_tracking
+                                   else self.step_chunk,
+                                   track_steps=self.photon_tracking)
+                if self.photon_tracking:
+                    result, tracking = result
 
         want_hits = self.has_channels and (keep_hits or keep_flat_hits)
         batch_hits = None
@@ -198,7 +220,7 @@ class Simulation:
         if keep_photons_end:
             with profiler.region('sim.readback'):
                 channel = None
-                if self.has_channels:
+                if want_hits:
                     channel = np.maximum(daq_ops.photon_channels_device(
                         result, self.gpu_geometry).cpu().numpy(),
                         0).astype(np.uint32)

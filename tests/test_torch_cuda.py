@@ -21,7 +21,8 @@ from chroma_tpu_torch.make import box, sphere
 from chroma_tpu_torch.bvh.wide import build_instanced_bvh
 from chroma_tpu_torch.ops import mesh_wide, visit_kernel
 from chroma_tpu_torch.ops.photon import PhotonState
-from chroma_tpu_torch.ops.types import pack_material_codes
+from chroma_tpu_torch.ops.types import (build_geometry_arrays,
+                                        pack_material_codes)
 
 torch.set_num_threads(2)
 
@@ -170,11 +171,8 @@ def _device_bomb(n, seed, device):
         cur_mat=torch.full((n,), -1, dtype=torch.int32, device=device))
 
 
-@pytest.mark.cuda
-def test_device_source_simulation_and_facade(cuda):
-    """A PhotonState made on the card goes through Simulation and through
-    GPUPhotons.propagate + GPUDaq with the same seed: equal end states,
-    hits and channels, and both launch the visit kernel."""
+def _box_detector():
+    "A 1 m water box whose photocathode detects half the photons."
     mat = Material('water')
     for name, value in (('refractive_index', 1.33),
                         ('absorption_length', 1e5),
@@ -187,6 +185,15 @@ def test_device_source_simulation_and_facade(cuda):
     det.add_pmt(Solid(box(1000.0, 1000, 1000), mat, vacuum, surface=pc))
     det.set_time_dist_gaussian(1.2, -6.0, 6.0)
     det.set_charge_dist_gaussian(1.0, 0.1, 0.5, 1.5)
+    return det
+
+
+@pytest.mark.cuda
+def test_device_source_simulation_and_facade(cuda):
+    """A PhotonState made on the card goes through Simulation and through
+    GPUPhotons.propagate + GPUDaq with the same seed: equal end states,
+    hits and channels, and both launch the visit kernel."""
+    det = _box_detector()
     state = _device_bomb(20000, 3, cuda)
 
     before = visit_kernel.launches
@@ -217,6 +224,85 @@ def test_device_source_simulation_and_facade(cuda):
                                       getattr(ev.channels, name),
                                       err_msg=name)
     assert (ev.flat_hits.flags & event.SURFACE_DETECT).all()
+
+
+N_SHARDED = 1 << 16
+
+
+def nccl_rank(n, seed):
+    """One rank of test_nccl_ranks_match_one_process: the sharded
+    propagation and DAQ of a bomb on the box detector, on the rank's
+    card; returns numpy results."""
+    from chroma_tpu_torch.parallel import (photon_mesh,
+                                           propagate_and_daq_sharded)
+    mesh = photon_mesh()
+    ga = build_geometry_arrays(_box_detector()).to(mesh.device)
+    state = _device_bomb(n, 3, torch.device('cpu'))
+    before = visit_kernel.launches
+    photons, channels = propagate_and_daq_sharded(
+        state.map(lambda a: a.to(mesh.device)), ga, seed, max_steps=100,
+        mesh=mesh)
+    return dict(device=str(mesh.device), current=torch.cuda.current_device(),
+                launches=visit_kernel.launches - before,
+                state={k: v.cpu().numpy() for k, v in vars(photons).items()},
+                daq=[x.cpu().numpy() for x in (channels.earliest_time,
+                                               channels.charge,
+                                               channels.histories)])
+
+
+@pytest.mark.cuda
+def test_nccl_ranks_match_one_process(cuda):
+    """propagate_and_daq_sharded over NCCL, one rank a card: each rank on
+    its own card (and that card current), K1 launched in each, every rank
+    the same result; the gathered state equals each slice propagated
+    alone here with the rank's seed, bit for bit, and the reduced readout
+    equals each slice's run_daq reduced by numpy min / sum / OR (times and
+    histories bit for bit, charge at the charge unit)."""
+    from chroma_tpu_torch.ops import daq
+    from chroma_tpu_torch.ops.propagate import propagate
+    from chroma_tpu_torch.ops.sample import make_generator
+    from chroma_tpu_torch.parallel import PhotonMesh, run_ranks, shard_seed
+    from chroma_tpu_torch.parallel.sharding import DAQ_SITE
+    k = torch.cuda.device_count()
+    if k < 2:
+        pytest.skip('needs two or more cards: NCCL takes one rank a card')
+    seed = 13
+    res = run_ranks(nccl_rank, k, args=(N_SHARDED, seed), backend='nccl',
+                    timeout=600)
+    assert [r['device'] for r in res] == ['cuda:%d' % i for i in range(k)]
+    assert [r['current'] for r in res] == list(range(k))
+    assert min(r['launches'] for r in res) > 0
+    for r in res[1:]:
+        for name, field in r['state'].items():
+            assert field.tobytes() == res[0]['state'][name].tobytes(), name
+        for a, b in zip(r['daq'], res[0]['daq']):
+            assert a.tobytes() == b.tobytes()
+    ga = build_geometry_arrays(_box_detector()).to(cuda)
+    state = _device_bomb(N_SHARDED, 3, cuda)
+    per = N_SHARDED // k
+    parts = []
+    for rank in range(k):
+        mesh = PhotonMesh(group=None, size=k, rank=rank, device=cuda)
+        alone = propagate(state.map(lambda a: a[rank * per:
+                                                (rank + 1) * per]),
+                          ga, shard_seed(seed, mesh), max_steps=100)
+        for name, field in vars(alone).items():
+            assert field.cpu().numpy().tobytes() == \
+                res[0]['state'][name][rank * per:(rank + 1) * per] \
+                .tobytes(), name
+        gen = make_generator(cuda, *shard_seed((seed, DAQ_SITE), mesh))
+        arr = daq.run_daq(alone, ga, gen)
+        parts.append([x.cpu().numpy() for x in (
+            arr.earliest_time, arr.charge, arr.histories)])
+    t, q, h = res[0]['daq']
+    assert t.tobytes() == np.min([p[0] for p in parts], axis=0).tobytes()
+    assert h.view(np.uint32).tobytes() == np.bitwise_or.reduce(
+        [p[2].view(np.uint32) for p in parts], axis=0).tobytes()
+    unit = float(ga.detector.charge_unit)
+    np.testing.assert_array_equal(
+        np.round(q / unit), np.round(np.sum([p[1] for p in parts], axis=0)
+                                     / unit))
+    assert (t < 1e8).sum() == 1
 
 
 def _camera_scene():

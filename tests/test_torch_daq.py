@@ -3,7 +3,9 @@
 Given the same photons and the same uniforms (the JAX draws fed to the
 port), the channel arrays (earliest time, charge, OR of histories) and the
 flat-hit pack (channels, permutation, count) must be bit for bit equal,
-for one readout and for replicas spanning two blocks."""
+for one readout and for replicas spanning two blocks; so must the gathers
+of the packed hits, the host channel map, and the fields of the hits that
+stay on the device (LazyHits) once they are read."""
 import numpy as np
 import pytest
 import torch
@@ -121,3 +123,100 @@ def test_run_daq_weight_and_detection_state_bitwise(hits, weight, state):
     assert (got.charge.numpy() <= base.charge.numpy()).all()
     if weight < 1.0:
         assert got.charge.sum() < base.charge.sum()
+
+
+def test_photon_channels_matches_jax(hits):
+    "The host channel map of every photon, -1 where none was detected."
+    ga, ta, js, ts = hits
+    host = tprop.photon_state_to_host(ts)
+    solid_id = np.asarray(ga.solid_id)
+    table = np.asarray(ga.detector.solid_id_to_channel_index)
+    want = jdaq.photon_channels(jprop.photon_state_to_host(js), solid_id,
+                                table)
+    got = tdaq.photon_channels(host, solid_id, table)
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, tdaq.photon_channels_device(ts, ta).numpy())
+
+
+@pytest.mark.parametrize('m', [4096, N])
+def test_flat_hit_gathers_match_jax(hits, m):
+    """flat_hit_gather and gather_hits at gather width m: the m packed
+    lanes (the detected ones first, then filler), their channels and the
+    count equal JAX's bit for bit."""
+    ga, ta, js, ts = hits
+    j_sub, j_ch, j_n = jdaq.flat_hit_gather(js, ga, m)
+    t_sub, t_ch, t_n = tdaq.flat_hit_gather(ts, ta, m)
+    assert int(t_n) == int(j_n) and len(t_sub) == m
+    np.testing.assert_array_equal(t_ch.numpy(), np.asarray(j_ch))
+    for name, field in vars(t_sub).items():
+        a = np.asarray(getattr(j_sub, name))
+        a = a.view(np.int32) if a.dtype == np.uint32 else a
+        assert field.numpy().tobytes() == a.tobytes(), name
+    channel, perm, _ = tdaq.flat_hit_pack(ts, ta)
+    g_sub, g_ch = tdaq.gather_hits(ts, channel, perm, m)
+    j_gsub, j_gch = jdaq.gather_hits(js, *jdaq.flat_hit_pack(js, ga)[:2], m)
+    np.testing.assert_array_equal(g_ch.numpy(), np.asarray(j_gch))
+    assert g_sub.t.numpy().tobytes() == np.asarray(j_gsub.t).tobytes()
+
+
+def test_lazy_hits_match_jax(hits):
+    """extract_flat_hits keeps the hits on the device until a field is
+    read (len() is free); then every field equals JAX's LazyHits'; slices
+    and pickles are plain Photons."""
+    import pickle
+    ga, ta, js, ts = hits
+    want = jdaq.extract_flat_hits(js, ga)
+    got = tdaq.extract_flat_hits(ts, ta)
+    assert isinstance(got, tdaq.LazyHits) and isinstance(got, tevent.Photons)
+    n = len(got)
+    assert n == len(want) > 0
+    sub, ch = got.device_state()
+    assert len(sub) == n and (ch >= 0).all()
+    assert 'pos' not in vars(got)
+    for name in tdaq.LazyHits._FIELDS:
+        a = np.asarray(getattr(want, name))
+        assert getattr(got, name).tobytes() == a.tobytes(), name
+    assert got.device_state() is None
+    assert type(got[:n // 2]) is tevent.Photons and len(got[:n // 2]) == n // 2
+    back = pickle.loads(pickle.dumps(tdaq.extract_flat_hits(ts, ta)))
+    assert type(back) is tevent.Photons and len(back) == n
+    assert back.channel.tobytes() == got.channel.tobytes()
+
+
+def test_propagate_with_hits_matches_jax():
+    """propagate_with_hits: the final state and its LazyHits, which equal
+    extract_flat_hits of that state; on the box detector the detected
+    count agrees with JAX's propagate_with_hits within 5 sigma."""
+    from test_torch_host import J, T, _box_detector
+    from chroma_tpu.loader import create_geometry_from_obj
+    n = 4096
+    counts = []
+    for h in (J, T):
+        np.random.seed(2)
+        bomb = h.photon_bomb(n, 400.0, (0, 0, 0))
+        if h is J:
+            ga = jtypes.build_geometry_arrays(create_geometry_from_obj(
+                _box_detector(J), update_bvh_cache=False))
+            result, got = jdaq.propagate_with_hits(
+                jprop.photon_state_from_host(bomb), ga, make_key(3),
+                max_steps=50)
+        else:
+            geo = _box_detector(T)
+            geo.flatten()
+            ta = ttypes.build_geometry_arrays(geo)
+            result, got = tdaq.propagate_with_hits(
+                tprop.photon_state_from_host(bomb, 'cpu'), ta, 3,
+                max_steps=50)
+            assert isinstance(got, tdaq.LazyHits)
+            again = tdaq.extract_flat_hits(result, ta)
+            assert len(again) == len(got)
+            assert again.t.tobytes() == got.t.tobytes()
+            flags = result.flags.numpy().view(np.uint32)
+            assert len(got) == int(((flags & tevent.SURFACE_DETECT)
+                                    != 0).sum())
+        counts.append(len(got))
+    p = sum(counts) / (2.0 * n)
+    assert 0.4 < p < 0.6
+    assert abs(counts[0] - counts[1]) <= 5 * np.sqrt(2 * n * p * (1 - p))

@@ -340,6 +340,95 @@ def test_geocache_cross(tmp_path, tiny_arrays, direction, lean):
     _assert_same(got, own, 'ga')
 
 
+def _rows_v3(rows, fanout, leaf_size, packed):
+    """The version-3 layout of a version-4 instanced table: bounds and
+    first child at column 0 of internal rows, and each instance row (its
+    tri_base and instance id at 13, 14) pointing at column 12 to a BLAS
+    root row, appended at the end, that holds what the version-4 instance
+    row embeds."""
+    from chroma_tpu_torch.bvh.wide import INST_B0, LEAF_STRIDE, TAG_INTERNAL
+    nw = 3 * fanout if packed else 6 * fanout
+    tags = rows[:, -1].view(np.int32)
+    old = np.zeros_like(rows)
+    old[:, -1] = rows[:, -1]
+    internal, idx = tags == TAG_INTERNAL, np.flatnonzero(tags == 2)
+    leaf = tags == 1
+    old[internal, :nw + 1] = rows[internal, INST_B0:INST_B0 + nw + 1]
+    old[leaf, :LEAF_STRIDE * leaf_size] = rows[leaf,
+                                               :LEAF_STRIDE * leaf_size]
+    old[idx, :12] = rows[idx, :12]
+    old[idx, 13:15] = rows[idx, 12:14]
+    old[idx, 12] = (len(rows) + np.arange(len(idx), dtype=np.int32)
+                    ).view(np.float32)
+    roots = np.zeros((len(idx), rows.shape[1]), np.float32)
+    roots[:, :nw + 1] = rows[idx, INST_B0:INST_B0 + nw + 1]
+    roots[:, -1] = np.int32(TAG_INTERNAL).view(np.float32)
+    return np.concatenate([old, roots])
+
+
+def test_upgrade_instanced_rows_v3_bitwise(tiny_arrays):
+    """bvh.wide.upgrade_instanced_rows_v3 equals the JAX original bit for
+    bit, and turns the version-3 layout of demo.tiny()'s table back into
+    the table (plus the appended root rows), bounds in bf16 and in f32,
+    and a tiny mesh whose BLAS root is a leaf."""
+    from chroma_tpu.bvh.wide import upgrade_instanced_rows_v3 as jup
+    from chroma_tpu_torch.bvh.wide import upgrade_instanced_rows_v3 as tup
+    _, ga_t = tiny_arrays
+    rows = ga_t.wide.rows.numpy()
+    f, k = ga_t.wide.fanout, ga_t.wide.leaf_size
+    v3 = _rows_v3(rows, f, k, True)
+    got = tup(v3, f, k, True)
+    assert got.tobytes() == jup(v3, f, k, True).tobytes()
+    assert got[:len(rows)].tobytes() == rows.tobytes()
+    # an instance whose BLAS root is a leaf: its bounds are made from the
+    # triangles of that leaf, packed or (in a table wide enough) f32
+    leaf_row = np.flatnonzero(rows[:, -1].view(np.int32) == 1)[0]
+    v3[np.flatnonzero(v3[:, -1].view(np.int32) == 2)[0], 12] = \
+        np.int32(leaf_row).view(np.float32)
+    wide = np.zeros((len(v3), 6 * f + 16), np.float32)
+    wide[:, :v3.shape[1] - 1] = v3[:, :-1]
+    wide[:, -1] = v3[:, -1]
+    for table, packed in ((v3, True), (wide, False)):
+        a, b = tup(table, f, k, packed), jup(table, f, k, packed)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), packed
+
+
+def test_geocache_v3_loads_upgraded(tmp_path, tiny_arrays):
+    """A version-3 geocache loads in both packages, its table upgraded on
+    the host as chroma_tpu/io/geocache.py:135 does, with no re-mesh: the
+    two loads are equal bit for bit, and equal to the build."""
+    import json
+    _, ga_t = tiny_arrays
+    path = str(tmp_path / 'tiny')
+    tgeocache.save_geometry_arrays(path, ga_t)
+    with open(path + '.json') as fh:
+        meta = json.load(fh)
+    with np.load(path + '.npz') as zf:
+        arrays = {key: zf[key] for key in zf.files}
+    rows = arrays['ga.wide.rows']
+    arrays['ga.wide.rows'] = _rows_v3(rows, ga_t.wide.fanout,
+                                      ga_t.wide.leaf_size, True)
+    meta['__version__'] = 3
+    np.savez(path + '.npz', **arrays)
+    with open(path + '.json', 'w') as fh:
+        json.dump(meta, fh)
+    got, want = (pkg.load_geometry_arrays(path)
+                 for pkg in (tgeocache, jgeocache))
+    assert got is not None and want is not None
+    assert got.wide.rows.numpy().tobytes() == \
+        np.asarray(want.wide.rows).tobytes()
+    assert got.wide.rows[:len(rows)].numpy().tobytes() == rows.tobytes()
+    _assert_same(dataclasses.replace(got, wide=dataclasses.replace(
+        got.wide, rows=got.wide.rows[:len(rows)])), ga_t, 'ga')
+
+
+def test_has_detector_matches_jax(tiny_arrays):
+    ga_j, ga_t = tiny_arrays
+    assert ga_t.has_detector and ga_j.has_detector
+    assert dataclasses.replace(ga_t, detector=None).has_detector is \
+        dataclasses.replace(ga_j, detector=None).has_detector is False
+
+
 # --------------------------------------------------------------------------
 # device-resident sources, the facade, tracking
 # --------------------------------------------------------------------------

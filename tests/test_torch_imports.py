@@ -2,9 +2,13 @@
 chip_smoke.py, imports the JAX package chroma_tpu, jax, jaxlib or flax --
 at its top, inside a function or in a try block alike -- and the port
 reads its data files and sources from its own directory. Each file is
-parsed with ast, not imported, so this holds on any machine."""
+parsed with ast, not imported, so this holds on any machine. Importing the
+package and its host-only tools starts no device library."""
 import ast
 import os
+import subprocess
+import sys
+import textwrap
 
 import pytest
 
@@ -65,7 +69,8 @@ def test_scan_covers_the_port():
                  os.path.join('histogram', 'histogramdd.py'),
                  os.path.join('histogram', 'graph.py'),
                  os.path.join('histogram', 'draw.py'), 'parabola.py',
-                 'pi0.py'):
+                 'pi0.py', os.path.join('parallel', 'sharding.py'),
+                 os.path.join('parallel', 'launch.py')):
         assert os.path.join('chroma_tpu_torch', name) in sources, name
 
 
@@ -110,3 +115,29 @@ def test_port_reads_its_own_files():
             with open(os.path.join(PORT, sub, n), 'rb') as a, \
                     open(os.path.join(REPO, 'chroma_tpu', sub, n), 'rb') as b:
                 assert a.read() == b.read(), n
+
+
+HOST_IMPORT = textwrap.dedent('''
+    import sys
+    import chroma_tpu_torch
+    import chroma_tpu_torch.cli.bvh
+    import chroma_tpu_torch.cli.geo
+    assert 'chroma_tpu_torch.sim' not in sys.modules
+    import torch
+    assert not torch.cuda.is_initialized()
+    assert chroma_tpu_torch.Simulation.__module__ == 'chroma_tpu_torch.sim'
+    assert chroma_tpu_torch.Likelihood.__module__ == \\
+        'chroma_tpu_torch.likelihood'
+    print('OK')
+''')
+
+
+def test_import_starts_no_device_library():
+    """`import chroma_tpu_torch`, cli.geo and cli.bvh load neither the
+    Simulation nor the Likelihood, and leave torch.cuda uninitialised; both
+    load on first use, as chroma_tpu/__init__.py:27-36 has them."""
+    proc = subprocess.run([sys.executable, '-c', HOST_IMPORT], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == 'OK'

@@ -9,10 +9,11 @@ printed); a miss gives the background word exactly. The photon map
 (`to_diffuse`, the scatter-add, the tone map, `hybrid_render`) is held in
 tests/test_torch_hybrid.py.
 
-The camera of the demo.tiny() case stands off the detector's symmetry
-planes: from the default pose every ray of the middle rows runs along
-shared edges of the mesh, where the two triangles tie to the ulp and the
-winner depends on how each compiler rounds the traversal."""
+demo.tiny() is looked at twice: from a camera off the detector's symmetry
+planes, and head-on from the camera's default pose, where every ray of the
+middle rows runs along edges shared by two triangles that tie to the ulp.
+The port rounds the traversal as XLA's CPU code does (fused multiply-adds,
+ops/mesh_wide.py), so there too every triangle id is JAX's."""
 import numpy as np
 import pytest
 import torch
@@ -64,6 +65,11 @@ def _film(h, geo, scene):
     if scene == 'cube':
         o, d = import_module(pkg + '.tools').from_film(
             position=(0.3, -10.0, 0.2), size=SIZE, width=10.0)
+    elif scene == 'tiny_head_on':
+        pose, _, _ = import_module(pkg + '.camera')._scene_pose(geo)
+        o, d = import_module(pkg + '.tools').from_film(
+            pose.position, axis1=pose.axis1, axis2=pose.axis2, size=SIZE,
+            width=35.0, focal_length=18.0)
     else:
         lower, upper = geo.mesh.get_bounds()
         scale = float(np.linalg.norm(upper - lower))
@@ -81,7 +87,8 @@ def get_scene(name):
     """(JAX arrays, port arrays, origin, direction): scene `name` built by
     each package, and the rays (equal from both packages' from_film)."""
     if name not in _scenes:
-        build = {'cube': cube_scene, 'tiny': tiny_scene}[name]
+        build = {'cube': cube_scene, 'tiny': tiny_scene,
+                 'tiny_head_on': tiny_scene}[name]
         gj, gt = build(J), build(T)
         oj, dj = _film(J, gj, name)
         ot, dt = _film(T, gt, name)
@@ -91,7 +98,7 @@ def get_scene(name):
     return _scenes[name]
 
 
-@pytest.fixture(params=['cube', 'tiny'])
+@pytest.fixture(params=['cube', 'tiny', 'tiny_head_on'])
 def scene(request):
     return get_scene(request.param)
 
@@ -156,7 +163,8 @@ def test_shade_matches_jax():
 # --- depth peeling and compositing ------------------------------------------
 
 @pytest.mark.parametrize('name,alpha_depth', [
-    ('cube', 1), ('cube', 3), ('cube', 10), ('tiny', 3)])
+    ('cube', 1), ('cube', 3), ('cube', 10), ('tiny', 3),
+    ('tiny_head_on', 3)])
 def test_render_matches_jax(name, alpha_depth):
     """Depth 10 on the cube scene only: the JAX renderer compiles one
     traversal a layer."""
@@ -172,11 +180,14 @@ def test_render_matches_jax(name, alpha_depth):
 
 def test_layers_match_jax(scene):
     """Every depth layer's triangle equal, its distance to 1e-5 of the
-    path from the camera."""
+    path from the camera. The JAX side normalises the directions and moves
+    to each hit compiled, as its renderer does."""
     gaj, gat, o, d = scene
     depth = 4
-    dn = jnp.asarray(d) / jnp.linalg.norm(jnp.asarray(d), axis=-1,
-                                          keepdims=True)
+    dn = jax.jit(lambda x: x / jnp.linalg.norm(x, axis=-1, keepdims=True))(
+        jnp.asarray(d))
+    advance = jax.jit(lambda p, dist, hit: jnp.where(
+        hit[:, None], p + dist[:, None] * dn, p))
     layers = list(render.peel(_t(o), render._unit(_t(d)), gat, depth))
     assert len(layers) == depth
     trace = jax.jit(lambda p, last, act: intersect_mesh_wide(
@@ -200,7 +211,7 @@ def test_layers_match_jax(scene):
             + np.where(hit, np.asarray(dist), 0.0)
         assert (np.abs(dist_t.numpy()[hit] - np.asarray(dist)[hit])
                 <= 1e-5 * path[hit]).all()
-        pos = jnp.where(hit[:, None], pos + dist[:, None] * dn, pos)
+        pos = advance(pos, dist, hit)
         last = jnp.where(hit, tri, last)
         active = active & hit
     # the layers thin out: rays leave the scene

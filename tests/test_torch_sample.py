@@ -110,3 +110,56 @@ def test_sample_cdf_uniform_rows_matches_jax(grid):
         torch.from_numpy(u), torch.from_numpy(table), torch.from_numpy(row),
         x0, dx).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+def _feed(monkeypatch, draws):
+    """Make torch.rand return the given U[0, 1) arrays in turn (the draws a
+    JAX key makes), so a port sampler can be held to its JAX original."""
+    queue = [torch.from_numpy(np.array(d, np.float32)) for d in draws]
+
+    def rand(shape, generator=None, device=None, dtype=None):
+        out = queue.pop(0)
+        assert tuple(out.shape) == tuple(shape)
+        return out
+    monkeypatch.setattr(torch, 'rand', rand)
+
+
+def test_uniform_sphere_matches_jax(monkeypatch):
+    """uniform_sphere(generator, shape) on JAX's draws (the key split in
+    two: azimuth, then cosine) equals JAX's uniform_sphere: z bit for bit,
+    x and y to the last ulps of each library's cos/sin; on its own draws
+    it gives unit vectors."""
+    key = jsample.make_key(5)
+    k1, k2 = jax.random.split(key)
+    shape = (64, 50)
+    ref = np.asarray(jsample.uniform_sphere(key, shape))
+    gen = tsample.make_generator('cpu', 5)
+    with monkeypatch.context() as mp:
+        _feed(mp, [jax.random.uniform(k, shape) for k in (k1, k2)])
+        got = tsample.uniform_sphere(gen, shape).numpy()
+    assert got.shape == ref.shape == shape + (3,)
+    np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+    np.testing.assert_allclose(got[..., :2], ref[..., :2], rtol=0,
+                               atol=2 * np.finfo(np.float32).eps)
+    own = tsample.uniform_sphere(gen, (4096,))
+    np.testing.assert_allclose(own.norm(dim=1).numpy(), 1.0, atol=1e-6)
+    assert abs(float(own.mean(dim=0).abs().max())) < 0.05
+
+
+def test_exponential_matches_jax(monkeypatch):
+    """exponential(generator, shape, scale) on JAX's draw equals JAX's
+    exponential to the last ulp of each library's log; on its own draws
+    its mean is the scale."""
+    key = jsample.make_key(6)
+    scale = np.linspace(1.0, 500.0, 4000).astype(np.float32)
+    ref = np.asarray(jsample.exponential(key, scale.shape,
+                                         jnp.asarray(scale)))
+    gen = tsample.make_generator('cpu', 6)
+    with monkeypatch.context() as mp:
+        _feed(mp, [jax.random.uniform(key, scale.shape)])
+        got = tsample.exponential(gen, scale.shape,
+                                  torch.from_numpy(scale)).numpy()
+    assert (got > 0).all() and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, rtol=4 * np.finfo(np.float32).eps)
+    own = tsample.exponential(gen, (100000,), 10.0)
+    assert abs(float(own.mean()) - 10.0) < 0.2

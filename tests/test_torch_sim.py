@@ -5,7 +5,9 @@ photons: the detected, bulk-absorbed and escaped (NO_HIT) counts must
 agree within 4 sigma of the binomial spread of the difference of two
 independent runs (the two use different random streams), and so must a
 box with a thin-film complex surface. Also: batching routes results to
-their events, a CUDA device without a card raises, and the whole package
+their events, a CUDA device without a card raises, photons_end.channel is
+filled only when hits are wanted and a Detector passed without arrays gets
+the classic BVH, both as in chroma_tpu.Simulation, and the whole package
 imports and runs -- a reemitting medium and the likelihood included --
 with jax, flax and the JAX package chroma_tpu blocked, as on a machine
 that has none of them. Each side builds its geometry and photons from its
@@ -225,6 +227,91 @@ BLOCKED_RUN = textwrap.dedent('''
     assert not any(m.split('.')[0] in BLOCKED for m in sys.modules)
     print('OK', len(ev.photons_end))
 ''')
+
+
+def _four_pmt_detector(h):
+    "The 4-channel box detector of tests/test_parallel.py, from h."
+    water = h.Material('water')
+    water.set('refractive_index', 1.33)
+    water.set('absorption_length', 1e5)
+    water.set('scattering_length', 1e5)
+    pc = h.Surface('pc')
+    pc.set('detect', 0.6)
+    pc.set('absorb', 0.4)
+    det = h.Detector(h.vacuum)
+    pmt = h.Solid(h.box(300.0, 300.0, 300.0), water, h.vacuum, surface=pc)
+    for disp in ([800.0, 0, 0], [-800.0, 0, 0], [0, 800.0, 0],
+                 [0, -800.0, 0]):
+        det.add_pmt(pmt, displacement=np.asarray(disp, np.float64))
+    det.set_time_dist_gaussian(1.2, -6.0, 6.0)
+    det.set_charge_dist_gaussian(1.0, 0.1, 0.5, 1.5)
+    return det
+
+
+@pytest.mark.parametrize('keep_hits', [False, True])
+def test_photons_end_channel_only_with_hits(keep_hits, monkeypatch):
+    """photons_end.channel is filled only when hits are wanted, as
+    chroma_tpu/sim.py:237-244 fills it: zeros otherwise; with hits, each
+    detected photon's channel, on the 4-channel box in both packages."""
+    from chroma_tpu.sim import Simulation as JaxSimulation
+    monkeypatch.setenv('CHROMA_FUSED_SCHEDULE', 'none')
+    for h in (J, T):
+        np.random.seed(1)
+        bomb = h.photon_bomb(4096, 400.0, (0, 0, 0))
+        sim = JaxSimulation(_four_pmt_detector(J), seed=0) if h is J \
+            else chroma_tpu_torch.Simulation(_four_pmt_detector(T), seed=0,
+                                             device='cpu')
+        ev = next(sim.simulate([bomb], keep_photons_end=True,
+                               keep_hits=keep_hits,
+                               keep_flat_hits=keep_hits, max_steps=100))
+        end = ev.photons_end
+        assert end.channel.dtype == np.uint32
+        if not keep_hits:
+            assert (end.channel == 0).all(), h
+            continue
+        detected = (end.flags & h.event.SURFACE_DETECT) != 0
+        assert sorted(set(end.channel[detected])) == [0, 1, 2, 3], h
+        assert (end.channel[~detected] == 0).all(), h
+        np.testing.assert_array_equal(np.sort(end.channel[detected]),
+                                      np.sort(ev.flat_hits.channel))
+
+
+def test_detector_gets_the_classic_bvh(tmp_path, monkeypatch):
+    """A Detector passed without arrays gets the classic BVH that
+    loader.create_geometry_from_obj builds, through the port's cache, when
+    sim.detector is first read: the JAX Simulation's in DFS layout bit for
+    bit, so ops.mesh.build_dfs_arrays takes sim.detector; a second
+    Simulation reads it from the cache; given arrays, nothing is built."""
+    from chroma_tpu.bvh.dfs import flatten_to_dfs as jflatten
+    from chroma_tpu.sim import Simulation as JaxSimulation
+    from chroma_tpu_torch import cache as tcache
+    from chroma_tpu_torch.bvh import flatten_to_dfs
+    from chroma_tpu_torch.ops import mesh
+    # the port's cache of its own: the test session shares one directory
+    # with the JAX package, whose pickles hold its classes
+    cache_dir = str(tmp_path / 'cache')
+    monkeypatch.setattr(tcache.Cache.__init__, '__defaults__', (cache_dir,))
+    jsim = JaxSimulation(_box_detector(J), seed=0)
+    tsim = chroma_tpu_torch.Simulation(_box_detector(T), seed=0,
+                                       device='cpu')
+    assert not os.path.exists(cache_dir)
+    assert tsim.detector.bvh is not None
+    mesh_hash = tsim.detector.mesh.md5()
+    assert tcache.Cache().list_bvh(mesh_hash) == ['default']
+    again = chroma_tpu_torch.Simulation(_box_detector(T), device='cpu')
+    cached = tcache.Cache().load_bvh(mesh_hash)
+    monkeypatch.setattr(tcache.Cache, 'load_bvh', lambda *a: cached)
+    assert again.detector.bvh is cached
+    for a, b in zip(jflatten(jsim.detector.bvh),
+                    flatten_to_dfs(tsim.detector.bvh)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    dfs = mesh.build_dfs_arrays(tsim.detector)
+    assert dfs.n_nodes == len(flatten_to_dfs(tsim.detector.bvh)[0])
+    det = _box_detector(T)
+    det.flatten()
+    sim = chroma_tpu_torch.Simulation(det, device='cpu',
+                                      geometry_arrays=tsim.gpu_geometry)
+    assert sim.detector is det and det.bvh is None
 
 
 def test_runs_with_jax_blocked():
