@@ -106,10 +106,28 @@ non-zero:
      channels on every rank; propagate_and_daq_sharded's reduced readout
      against a single-process emulation, bit for bit; two calls with one
      seed equal; every rank's K1 launches; the wall against phase 5's.
+ 12. the fused bomb, the default route of ops.propagate since phases 5-11
+     took it (each stage's step a CUDA graph with K1 inside, after the
+     first step at its width, which runs eagerly; wire planes take eager
+     steps, phase 7 prints it):
+     a. the tuner's cost model on this card: graph-replayed quick-detector
+        steps from 2^11 to 2^20 lanes and the boundaries between stages,
+        fitted to lines, printed as ops.propagate's three constants;
+     b. a 65,536-photon fused bomb with every step eager and with graph
+        replays, same seed: every field equal bit for bit;
+     c. the quick detector's phase-5 bomb through new Simulations: a probe
+        (fresh schedule caches), then tuned and chunked (CHROMA_FUSED=0)
+        bombs in turns, each with its wall, schedule, captures and capture
+        seconds, replays, K1 launches (= replays + captures: one a step),
+        blocking reads (at most one a boundary plus one) and its detected
+        fraction against phase 5's CPU run;
+     d. quick-optics' bomb and e. Likelihood.eval (nevals 1) on both
+        routes in turns.
 
-The kernel's launches are counted on each main path (phases 5 to 11, reset
-just before and read just after) and printed per phase; the first design is
-launched on none of them. The last lines are a JSON object describing the
+The kernel's launches are counted on each main path (phases 5 to 12, reset
+just before and read just after; a graph replay adds the K1 launches its
+capture holds) and printed per phase; the first design is launched on none
+of them. The last lines are a JSON object describing the
 kernels, and {"ok": true, "device": {...}}. Needs CUDA and the repository
 checkout.
 """
@@ -583,6 +601,13 @@ def launch_rays():
         visit_kernel.traverse = traverse
 
 
+def graph_cache(geometry):
+    "The step graphs captured on `geometry`, by key (ops.graphs)."
+    from chroma_tpu_torch.ops import graphs
+    ent = graphs._GRAPHS.get(id(geometry))
+    return ent[1] if ent is not None and ent[0]() is geometry else {}
+
+
 def run_main_path(sim, n, seed, pos=(0, 0, 0), run_daq=True):
     """A bomb of n 400 nm photons from `pos` through sim.simulate, with
     the visit kernel's launches counted from 0 and the rays of each query
@@ -596,6 +621,8 @@ def run_main_path(sim, n, seed, pos=(0, 0, 0), run_daq=True):
     if sim.device.type == 'cuda':
         torch.cuda.synchronize()
     visit_kernel.launches = 0
+    before = {k: g.n_replays
+              for k, g in graph_cache(sim.gpu_geometry).items()}
     with launch_rays() as sizes:
         t0 = time.perf_counter()
         ev = next(sim.simulate([bomb], run_daq=run_daq, max_steps=100,
@@ -604,8 +631,14 @@ def run_main_path(sim, n, seed, pos=(0, 0, 0), run_daq=True):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = visit_kernel.launches
-    log('  visit-kernel queries by rays: %s' % ', '.join(
-        '%d x %d' % (k, sizes[k]) for k in sorted(sizes, reverse=True)))
+    replayed = {k[0]: g.n_replays - before.get(k, 0)
+                for k, g in graph_cache(sim.gpu_geometry).items()
+                if g.n_replays > before.get(k, 0)}
+    log('  visit-kernel queries by rays, eager: %s; in graph replays: %s'
+        % (', '.join('%d x %d' % (k, sizes[k])
+                     for k in sorted(sizes, reverse=True)) or 'none',
+           ', '.join('%d x %d' % (k, replayed[k])
+                     for k in sorted(replayed, reverse=True)) or 'none'))
     aborts = int(((ev.photons_end.flags & event.NAN_ABORT) != 0).sum())
     return ev, wall, aborts, launches
 
@@ -660,10 +693,14 @@ def phase_quick_optics(device, card):
 
 
 def phase_lartpc(device, card):
-    "Phase 7: analytic wire planes."
+    """Phase 7: analytic wire planes, card against CPU, and a 2^20 bomb on
+    the declared route (the fused driver with eager steps: the probe,
+    then tuned bombs) in turns with the chunked driver. Returns (K1
+    launches by path, a row a bomb)."""
     import torch
     import chroma_tpu_torch
     from chroma_tpu_torch import event
+    from chroma_tpu_torch.ops import propagate as P
     from chroma_tpu_torch.ops.types import build_geometry_arrays
     from chroma_tpu_torch.ops.wireplane import (candidate_windows,
                                                 intersect_wireplanes)
@@ -705,22 +742,67 @@ def phase_lartpc(device, card):
         i, float(w.float().mean()), float(w[w > 0].float().mean()),
         int(w.max())) for i, w in enumerate(windows)]
     log('  candidate-wire iterations of the first step: ' + '; '.join(stats))
-    torch.cuda.reset_peak_memory_stats()
-    ev, wall, aborts, launches = run_main_path(sim, N_BOMB, 11, pos=source,
-                                               run_daq=False)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    pe = ev.photons_end
-    on_wire = (pe.last_hit_triangles == -2) \
-        & ((pe.flags & event.SURFACE_ABSORB) != 0)
-    log('  Simulation: wall %.3f s, %.0f photons/s, absorbed on wires %d '
-        '(%.4f), NaN aborts %d, visit-kernel launches %d, peak device '
-        'memory %.0f MiB (%s)' % (wall, N_BOMB / wall, int(on_wire.sum()),
-                                  on_wire.mean(), aborts, launches, peak,
-                                  card))
-    log('  flag bits: %s' % json.dumps(flag_counts(pe.flags)))
-    assert launches > 0 and aborts == 0 and on_wire.sum() > 0
-    assert np.isfinite(pe.pos).all()
-    return launches, wall
+    # the probe bomb on the declared route, then tuned and chunked bombs
+    # of the same photons in turns
+    rows = []
+    for i, route in enumerate(('fused', 'fused', 'chunked', 'fused',
+                               'chunked')):
+        os.environ['CHROMA_FUSED'] = '1' if route == 'fused' else '0'
+        try:
+            sched = P.schedule_for(g, N_BOMB, MAX_STEPS)
+            kind = route if route == 'chunked' else (
+                'probe' if P._sched_lookup(g, N_BOMB, MAX_STEPS) is None
+                else 'tuned')
+            torch.cuda.reset_peak_memory_stats()
+            fused_counters()
+            ev, wall, aborts, launches = run_main_path(
+                sim, N_BOMB, 11, pos=source, run_daq=False)
+            stats = fused_stats()
+        finally:
+            os.environ.pop('CHROMA_FUSED')
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        pe = ev.photons_end
+        on_wire = (pe.last_hit_triangles == -2) \
+            & ((pe.flags & event.SURFACE_ABSORB) != 0)
+        log('  %s bomb: wall %.3f s, %.0f photons/s, absorbed on wires %d '
+            '(%.4f), NaN aborts %d, visit-kernel launches %d, peak device '
+            'memory %.0f MiB (%s)' % (kind, wall, N_BOMB / wall,
+                                      int(on_wire.sum()), on_wire.mean(),
+                                      aborts, launches, peak, card))
+        if i == 0:
+            log('  flag bits: %s' % json.dumps(flag_counts(pe.flags)))
+        assert launches > 0 and aborts == 0 and on_wire.sum() > 0
+        assert np.isfinite(pe.pos).all()
+        row = dict(kind=kind, wall_s=wall, on_wire=float(on_wire.mean()),
+                   **stats)
+        if route == 'fused':
+            # the declared route: the fused driver with eager steps, since
+            # a wire plane's window count is read on the host
+            # (ops.wireplane)
+            assert stats['captures'] == stats['replays'] == 0
+            assert stats['blocking_reads'] <= len(sched) + 1, stats
+            row['schedule'] = sched
+        else:
+            detected_fraction_check(row['on_wire'], N_BOMB,
+                                    rows[0]['on_wire'], N_BOMB,
+                                    'absorbed on wires, chunked vs probe')
+        if kind == 'tuned':
+            detected_fraction_check(row['on_wire'], N_BOMB,
+                                    rows[0]['on_wire'], N_BOMB,
+                                    'absorbed on wires, tuned vs probe')
+        rows.append(row)
+    log('  route: fused driver, eager steps (wire planes); by bomb, in '
+        'turns: %s' % json.dumps(rows))
+    log('  lartpc-wires wall: probe %.3f s, tuned %s s, chunked %s s' % (
+        rows[0]['wall_s'],
+        ['%.3f' % r['wall_s'] for r in rows if r['kind'] == 'tuned'],
+        ['%.3f' % r['wall_s'] for r in rows if r['kind'] == 'chunked']))
+    launches = {'7 lartpc-wires': rows[0]['launches'],
+                '7 lartpc-wires tuned': sum(
+                    r['launches'] for r in rows if r['kind'] == 'tuned'),
+                '7 lartpc-wires chunked': sum(
+                    r['launches'] for r in rows if r['kind'] == 'chunked')}
+    return launches, rows
 
 
 def hit_channels_per_readout(sim, events, nreps, ndaq, trange):
@@ -1879,6 +1961,313 @@ def phase_sharded(loaded, work, card, phase5):
     return launches, summary
 
 
+FUSED_CHECK = 65536          # phase 12b's lanes, replay against eager
+FIXED_SCHEDULE = ((1, 2), (2, 2), (4, 2))   # phase 12b's schedule
+COST_WIDTHS = [1 << k for k in range(11, 21)]  # phase 12a's step widths
+COST_REPLAYS = 8
+MANY_EVENTS = 32             # phase 12f's likelihood events
+
+
+def fused_counters():
+    "Zero the counters of the fused route (K1, graphs, host reads)."
+    from chroma_tpu_torch.ops import graphs, visit_kernel
+    from chroma_tpu_torch.ops import propagate as P
+    visit_kernel.launches = 0
+    graphs.captures, graphs.capture_s, graphs.replays = 0, 0.0, 0
+    P.blocking_reads = P.throttle_waits = 0
+
+
+def fused_stats():
+    "The counters fused_counters zeroed, read."
+    from chroma_tpu_torch.ops import graphs, visit_kernel
+    from chroma_tpu_torch.ops import propagate as P
+    return dict(launches=visit_kernel.launches, captures=graphs.captures,
+                capture_s=graphs.capture_s, replays=graphs.replays,
+                blocking_reads=P.blocking_reads,
+                throttle_waits=P.throttle_waits)
+
+
+def check_fused(stats, schedule):
+    """A fused bomb's counters hold the route's contract: every step
+    launched K1 once, eagerly (one step before each capture) or in a
+    replay; at most one blocking read a stage boundary and one at the
+    end."""
+    assert stats['launches'] > 0
+    assert stats['launches'] == stats['replays'] + stats['captures'], stats
+    assert stats['blocking_reads'] <= len(schedule) + 1, stats
+
+
+def fit_line(x, y):
+    "Least-squares (slope, intercept) of y against x."
+    a, b = np.polyfit(np.asarray(x, float), np.asarray(y, float), 1)
+    return float(a), float(b)
+
+
+def boundary_ms(ph, width):
+    """Host ms of one fused-stage boundary at `width` lanes, as
+    _fused_bomb makes it: the blocking read of the alive count, the
+    front-pack, the lane gathers into a prefix of half the width and the
+    suffix, the prefix's copy into a graph's state and out of it, and the
+    reassembly in input order."""
+    import torch
+    from chroma_tpu_torch.ops import propagate as P
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    int(ph.alive.sum())
+    dest, perm = P._ps_compact_perm(ph.alive)
+    php = ph.map(lambda a: a[perm])
+    prefix = php.map(lambda a: a[:width // 2]).map(torch.clone).map(
+        torch.clone)
+    out = P._cat(prefix, php.map(lambda a: a[width // 2:])).map(
+        lambda a: a[dest])
+    torch.cuda.synchronize()
+    del out
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_cost_model(quick, device, card):
+    """Phase 12a: the tuner's cost model on this card. Graph-replayed
+    steps of the quick detector (a 2^20-photon bomb's first lanes, from
+    step 0; CUDA events over COST_REPLAYS replays) from 2^11 to 2^20
+    lanes fit t = a*w + b; boundaries (boundary_ms, median of 5) fit
+    c*w + d. Prints the constants of ops.propagate's tuner beside the
+    module's defaults."""
+    import torch
+    from chroma_tpu_torch.ops import graphs
+    from chroma_tpu_torch.ops import propagate as P
+    geo = quick.to(device)
+    big = device_bomb(N_BOMB, 120, device)
+    steps, bounds = [], []
+    for w in COST_WIDTHS:
+        sub = big.map(lambda a: a[:w].contiguous())
+        P._steps(sub, geo, 1, 1, 1, False, 0, True, True)   # eager+capture
+        g = graphs.lookup(geo, sub, False, 0, True)
+        g.load(sub)
+        g.replay(2, 1)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        g.load(sub)
+        e0.record()
+        for s in range(COST_REPLAYS):
+            g.replay(2, 1 + s)
+        e1.record()
+        torch.cuda.synchronize()
+        steps.append(e0.elapsed_time(e1) / COST_REPLAYS)
+        bounds.append(float(np.median([boundary_ms(sub, w)
+                                       for _ in range(5)])))
+    a, b = fit_line(COST_WIDTHS, steps)
+    c, d = fit_line(COST_WIDTHS, bounds)
+    consts = dict(floor_lanes=b / a, boundary_frac=c / a,
+                  boundary_lanes=d / a)
+    log('phase 12a: the tuner\'s cost model on the card (%s): graph-'
+        'replayed step ms by lanes %s; boundary ms %s' % (
+            card, ', '.join('%d: %.3f' % wt for wt in zip(COST_WIDTHS,
+                                                           steps)),
+            ', '.join('%d: %.3f' % wt for wt in zip(COST_WIDTHS, bounds))))
+    log('  step = %.4g ms/lane x w + %.4g ms; boundary = %.4g ms/lane x w '
+        '+ %.4g ms -> SCHED_FLOOR_LANES %.0f, SCHED_BOUNDARY_FRAC %.4f, '
+        'SCHED_BOUNDARY_LANES %.0f (module defaults %d, %.4f, %d)' % (
+            a, b, c, d, consts['floor_lanes'], consts['boundary_frac'],
+            consts['boundary_lanes'], P.SCHED_FLOOR_LANES,
+            P.SCHED_BOUNDARY_FRAC, P.SCHED_BOUNDARY_LANES))
+    assert a > 0 and all(np.isfinite(list(consts.values())))
+    return dict(step_ms=dict(zip(COST_WIDTHS, steps)),
+                boundary_ms=dict(zip(COST_WIDTHS, bounds)),
+                constants=consts, card=card)
+
+
+def phase_replay_vs_eager(quick, device, card):
+    """Phase 12b: the fused bomb of FUSED_CHECK quick-detector photons
+    by FIXED_SCHEDULE, every step eager and every step a graph replay
+    (after its width's first, eager, step), same seed: every PhotonState
+    field equal bit for bit, K1 launched once a step either way (steps
+    after the last lane died change nothing, and their number depends on
+    how far the host runs ahead of the card)."""
+    import torch
+    from chroma_tpu_torch.ops import propagate as P
+    geo = quick.to(device)
+    state = device_bomb(FUSED_CHECK, 121, device)
+    out = {}
+    for mode in (False, True):
+        fused_counters()
+        ph, _, abort = P._fused_bomb(state, geo, (3, 1), FIXED_SCHEDULE,
+                                     MAX_STEPS, use_graphs=mode)
+        torch.cuda.synchronize()
+        out[mode] = (ph, fused_stats())
+        assert not abort
+    (eager, se), (graph, sg) = out[False], out[True]
+    for name in ('pos', 'dir', 'pol', 'wavelength', 't', 'weight', 'flags',
+                 'last_hit_triangle', 'evidx', 'cur_mat'):
+        assert torch.equal(getattr(eager, name), getattr(graph, name)), \
+            'replay differs from eager in ' + name
+    # a stage stops a few steps after its last lane died, as its poll
+    # sees it: the faster graph route may run more of those no-op steps
+    assert se['launches'] > 0 and se['replays'] == 0 and sg['replays'] > 0
+    check_fused(sg, FIXED_SCHEDULE)
+    log('phase 12b: fused bomb of %d photons, schedule %s: graph replays '
+        'equal eager steps bit for bit on every field; K1 launches %d '
+        'eager, %d on the graph route (%d replays + %d eager steps before '
+        'captures), blocking reads %d (%s)' % (
+            FUSED_CHECK, FIXED_SCHEDULE, se['launches'], sg['launches'],
+            sg['replays'], sg['captures'], sg['blocking_reads'], card))
+    return sg['launches'] + se['launches']
+
+
+def route_bomb(sim, route, seed, cpu_frac, label):
+    """One phase-5 bomb (2^20 photons, run_daq) through `sim` on `route`
+    ('fused' or 'chunked', CHROMA_FUSED in this process), with the fused
+    route's counters; the detected fraction against phase 5's CPU
+    reference."""
+    from chroma_tpu_torch.ops import propagate as P
+    os.environ['CHROMA_FUSED'] = '1' if route == 'fused' else '0'
+    try:
+        sched = P.schedule_for(sim.gpu_geometry, N_BOMB, MAX_STEPS)
+        probe = P._sched_lookup(sim.gpu_geometry, N_BOMB, MAX_STEPS) is None
+        fused_counters()
+        ev, wall, aborts, _ = run_main_path(sim, N_BOMB, seed)
+        stats = fused_stats()
+    finally:
+        os.environ.pop('CHROMA_FUSED')
+    assert aborts == 0
+    frac = len(ev.flat_hits) / N_BOMB
+    detected_fraction_check(frac, N_BOMB, cpu_frac, N_CHECK,
+                            '%s detected fraction vs the CPU' % label)
+    row = dict(route=route, wall_s=wall, detected_frac=frac, **stats)
+    if route == 'fused':
+        check_fused(stats, sched)
+        row.update(kind='probe' if probe else 'tuned', schedule=sched,
+                   stages=len(sched) + 1)
+    log('  %s: %s' % (label, json.dumps(row)))
+    return row
+
+
+def phase_fused(quick_geo, quick, sim6, lk, cpu_frac, card):
+    """Phase 12c-e: the fused route against the chunked one on one card,
+    in turns. (c) the quick detector's phase-5 bomb: a probe (a fresh
+    session and perf cache), then tuned and chunked bombs in turns, each
+    with wall, schedule, stages, captures, replays, K1 launches, blocking
+    reads and its detected fraction against phase 5's CPU reference;
+    (d) quick-optics' bomb and (e) Likelihood.eval (nevals 1) on both
+    routes in turns; (f) Likelihood.eval over MANY_EVENTS events, with
+    the graphs cached and the device memory before and after. Returns
+    (K1 launches by path, rows)."""
+    import torch
+    import chroma_tpu_torch
+    from chroma_tpu_torch import perfcache
+    from chroma_tpu_torch.ops import graphs
+    from chroma_tpu_torch.ops import propagate as P
+    log('phase 12: the fused bomb (static schedule, probe-tuned, CUDA '
+        'graphs) against the chunked driver (%s)' % card)
+    P._SCHED_CACHE.clear()
+    perfcache._DISK.clear()
+    os.environ['CHROMA_CACHE_DIR'] = os.path.join(
+        os.environ['CHROMA_CACHE_DIR'], 'phase12')
+    # one Simulation a route: the fused one's first bomb is the probe, its
+    # second the first tuned bomb (its new widths captured), later ones warm
+    sims = {route: chroma_tpu_torch.Simulation(
+        quick_geo, seed=seed, device='cuda', geometry_arrays=quick)
+        for route, seed in (('fused', 12), ('chunked', 13))}
+    rows = []
+    for i, route in enumerate(('fused', 'fused', 'chunked', 'fused',
+                               'chunked', 'fused')):
+        rows.append(route_bomb(sims[route], route, 200 + i, cpu_frac,
+                               '12c %d %s' % (i, route)))
+    assert rows[0]['kind'] == 'probe' and rows[1]['kind'] == 'tuned'
+    launches = {'12c probe': rows[0]['launches'],
+                '12c tuned': sum(r['launches'] for r in rows[1:]
+                                 if r['route'] == 'fused'),
+                '12c chunked': sum(r['launches'] for r in rows
+                                   if r['route'] == 'chunked')}
+    fused_w = [r['wall_s'] for r in rows[3:] if r['route'] == 'fused']
+    chunk_w = [r['wall_s'] for r in rows if r['route'] == 'chunked']
+    log('  quick bomb wall: probe %.3f s, first tuned %.3f s, warm tuned '
+        '%s s, chunked %s s' % (rows[0]['wall_s'], rows[1]['wall_s'],
+                                ['%.3f' % w for w in fused_w],
+                                ['%.3f' % w for w in chunk_w]))
+
+    optics = []
+    for route in ('fused', 'chunked', 'chunked', 'fused'):
+        os.environ['CHROMA_FUSED'] = '1' if route == 'fused' else '0'
+        sched = P.schedule_for(sim6.gpu_geometry, N_BOMB, MAX_STEPS)
+        try:
+            fused_counters()
+            ev, wall, aborts, _ = run_main_path(sim6, N_BOMB, 122)
+            stats = fused_stats()
+        finally:
+            os.environ.pop('CHROMA_FUSED')
+        assert aborts == 0 and stats['launches'] > 0
+        if route == 'fused':
+            check_fused(stats, sched)
+        optics.append(dict(route=route, wall_s=wall,
+                           detected=len(ev.flat_hits), **stats))
+    log('phase 12d: quick-optics bomb by route, in turns: %s'
+        % json.dumps(optics))
+    launches['12d optics fused'] = sum(r['launches'] for r in optics
+                                       if r['route'] == 'fused')
+    launches['12d optics chunked'] = sum(r['launches'] for r in optics
+                                         if r['route'] == 'chunked')
+
+    nevals, nreps, ndaq = LIKELIHOOD
+    lrows = []
+    for route in ('fused', 'chunked', 'chunked', 'fused'):
+        os.environ['CHROMA_FUSED'] = '1' if route == 'fused' else '0'
+        try:
+            fused_counters()
+            nll, wall = timed(lambda: lk.eval(likelihood_gun(123), 1,
+                                              nreps=nreps, ndaq=ndaq))
+            stats = fused_stats()
+        finally:
+            os.environ.pop('CHROMA_FUSED')
+        assert np.isfinite(nll.nominal_value) and stats['launches'] > 0
+        lrows.append(dict(route=route, wall_s=wall,
+                          propagations_s=nreps / wall,
+                          nll=nll.nominal_value, **stats))
+    log('phase 12e: Likelihood.eval (nevals 1, nreps %d, ndaq %d) by '
+        'route, in turns: %s' % (nreps, ndaq, json.dumps(lrows)))
+    launches['12e likelihood fused'] = sum(r['launches'] for r in lrows
+                                           if r['route'] == 'fused')
+    launches['12e likelihood chunked'] = sum(r['launches'] for r in lrows
+                                             if r['route'] == 'chunked')
+
+    # 12f: a fit's many events, each with its own photon count (the gun
+    # gives every 10 MeV electron the same count, so each event keeps a
+    # prefix of its own length, as a yield that fluctuates would), so
+    # each probes and captures anew: the graph cache stays bounded
+    def varied_events():
+        for i, ev in enumerate(itertools.islice(likelihood_gun(124),
+                                                MANY_EVENTS)):
+            n = len(ev.photons_beg) - 97 * (i + 1)
+            ev.photons_beg = ev.photons_beg[:n]
+            yield ev
+
+    geom = sim6.gpu_geometry
+    torch.cuda.synchronize()
+    before = dict(graphs=len(graph_cache(geom)),
+                  allocated_mib=torch.cuda.memory_allocated() / 2 ** 20,
+                  reserved_mib=torch.cuda.memory_reserved() / 2 ** 20)
+    fused_counters()
+    nll, wall = timed(lambda: lk.eval(varied_events(), MANY_EVENTS,
+                                      nreps=1, ndaq=ndaq))
+    stats = fused_stats()
+    after = dict(graphs=len(graph_cache(geom)),
+                 allocated_mib=torch.cuda.memory_allocated() / 2 ** 20,
+                 reserved_mib=torch.cuda.memory_reserved() / 2 ** 20)
+    many = dict(events=MANY_EVENTS, wall_s=wall,
+                propagations_s=MANY_EVENTS / wall, nll=nll.nominal_value,
+                max_graphs=graphs.MAX_GRAPHS, before=before, after=after,
+                **stats)
+    log('phase 12f: Likelihood.eval over %d events (nreps 1, ndaq %d), '
+        'each a batch size of its own: %s' % (MANY_EVENTS, ndaq,
+                                              json.dumps(many)))
+    assert np.isfinite(nll.nominal_value) and stats['launches'] > 0
+    assert stats['captures'] >= MANY_EVENTS
+    assert after['graphs'] <= graphs.MAX_GRAPHS
+    launches['12f likelihood many events'] = stats['launches']
+    torch.cuda.synchronize()
+    return launches, dict(quick=rows, optics=optics, likelihood=lrows,
+                          many_events=many, card=card)
+
+
 def main(argv, work):
     import torch
     if not torch.cuda.is_available():
@@ -1893,6 +2282,9 @@ def main(argv, work):
         if '--out' in argv else os.path.join(work, 'frames')
     os.makedirs(out_dir, exist_ok=True)
     device = torch.device('cuda', 0)
+    # the port's caches (the perf cache's tuned schedules among them) go
+    # with the scratch files; the ranks of phase 11 inherit it
+    os.environ['CHROMA_CACHE_DIR'] = os.path.join(work, 'cache')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1985,7 +2377,7 @@ def main(argv, work):
 
     # --- 6.-8. the full optics, wire planes and the likelihood path
     geo6, ga6, sim6, launches6, _ = phase_quick_optics(device, card)
-    launches7, _ = phase_lartpc(device, card)
+    launches7, lartpc = phase_lartpc(device, card)
     launches8, lk = phase_likelihood(geo6, ga6, sim6, card)
 
     # --- 9. the user entry points
@@ -2013,25 +2405,36 @@ def main(argv, work):
     launches11, sharded = phase_sharded(loaded, work, card,
                                         (len(hits) / N_BOMB, wall))
 
+    # --- 12. the fused bomb: cost model, replay vs eager, routes in turns
+    cost = phase_cost_model(quick, device, card)
+    launches12b = phase_replay_vs_eager(quick, device, card)
+    launches12, fused = phase_fused(quick_geo, quick, sim6, lk,
+                                    len(cev.flat_hits) / N_CHECK, card)
+
     if profile:
-        profile_run('quick', lambda: run_main_path(sim, N_BOMB, 7), card,
-                    profile)
-        profile_run('quick-optics', lambda: run_main_path(sim6, N_BOMB, 7),
+        profile_run('quick (fused)', lambda: run_main_path(sim, N_BOMB, 7),
                     card, profile)
+        os.environ['CHROMA_FUSED'] = '0'
+        profile_run('quick (chunked)', lambda: run_main_path(sim, N_BOMB, 7),
+                    card, profile)
+        os.environ.pop('CHROMA_FUSED')
+        profile_run('quick-optics (fused)',
+                    lambda: run_main_path(sim6, N_BOMB, 7), card, profile)
         nevals, nreps, ndaq = LIKELIHOOD
-        profile_run('likelihood eval', lambda: lk.eval(
+        profile_run('likelihood eval (fused)', lambda: lk.eval(
             likelihood_gun(19), nevals, nreps=nreps, ndaq=ndaq), card,
             profile)
         profile_run('render frames', lambda: render_frames(
             quick_geo, quick_dev, device), card, profile)
     per_phase = {'5 quick': launches, '6 quick-optics': launches6,
-                 '7 lartpc-wires': launches7, '8 likelihood': launches8,
+                 **launches7, '8 likelihood': launches8,
                  '9b device source': launches9b, '9c facade': launches9c,
                  '9d tracking': launches9d, '9e cli sim': launches9e,
                  '9e cli profile': launches9e_prof,
                  '10c render': launches10c, '10d viewer': launches10d,
                  '10d hybrid': launches10h, '10e cli cam': launches10e,
-                 '10f gdml': launches10f, '11 sharded': launches11}
+                 '10f gdml': launches10f, '11 sharded': launches11,
+                 '12b replay vs eager': launches12b, **launches12}
     log('visit-kernel launches per main path: %s' % json.dumps(per_phase))
     assert visit_kernel.thread_launches == thread_launches, \
         'a main path launched the first design'
@@ -2044,6 +2447,8 @@ def main(argv, work):
         hybrid_s=wall10h,
         cli_cam_s=wall10e, cli_cam_tool_s=inner10e, sharded=sharded,
         card=card)}))
+    log(json.dumps({'fused': dict(cost_model=cost, lartpc=lartpc,
+                                  **fused)}))
     log(json.dumps({'kernels': [{
         'name': 'visit_inst',
         'route': 'cuda',

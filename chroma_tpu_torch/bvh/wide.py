@@ -24,6 +24,7 @@ import sys
 import numpy as np
 import torch
 
+from chroma_tpu_torch import perfcache
 from chroma_tpu_torch.bvh.build import morton_codes_3d
 from chroma_tpu_torch.log import logger
 
@@ -143,7 +144,9 @@ class InstancedBVH:
     bounds_fmt: str = None    # 'f32' | 'bf16' | 'q8'; None: from `packed`
 
     def to(self, device):
-        return dataclasses.replace(self, rows=self.rows.to(device))
+        out = dataclasses.replace(self, rows=self.rows.to(device))
+        perfcache.carry(self, out)    # the copy keeps the fingerprint
+        return out
 
 
 def fmt_of(wide):
@@ -935,6 +938,10 @@ def build_instanced_bvh(instances, fanout=None, leaf_size=LEAF_SIZE,
         packed=packed,
         bounds_fmt=fmt,
     )
+    # content fingerprint, computed while the table is still host numpy —
+    # keys the persisted learned-performance state (perfcache)
+    perfcache.register(built, perfcache.fingerprint_rows(
+        table, extra=(fanout, leaf_size, packed, n_inst, fmt)))
     if want_meta:
         return built, meta
     return built

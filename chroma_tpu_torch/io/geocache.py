@@ -29,6 +29,7 @@ import os
 import numpy as np
 import torch
 
+from chroma_tpu_torch import perfcache
 from chroma_tpu_torch.bvh import wide as W
 from chroma_tpu_torch.log import logger
 from chroma_tpu_torch.ops import types as T
@@ -84,11 +85,16 @@ def _unflatten(prefix, arrays, meta):
     return cls(**kwargs)
 
 
+def _bounds_fmt(meta):
+    "(packed, bounds format) of the stored instanced table."
+    packed = bool(meta.get('ga.wide.packed', [None, False])[1])
+    return packed, (meta.get('ga.wide.bounds_fmt')
+                    or [None, 'bf16' if packed else 'f32'])[1]
+
+
 def _table_stats(arrays, meta):
     "Quality stats of the stored instanced table (chroma_tpu's sidecar)."
-    packed = bool(meta.get('ga.wide.packed', [None, False])[1])
-    fmt = (meta.get('ga.wide.bounds_fmt')
-           or [None, 'bf16' if packed else 'f32'])[1]
+    fmt = _bounds_fmt(meta)[1]
     fanout = int(meta['ga.wide.fanout'][1])
     return W.table_stats(arrays['ga.wide.rows'], fanout,
                          int(meta['ga.wide.leaf_size'][1]), fmt), fanout
@@ -146,4 +152,14 @@ def load_geometry_arrays(path, lean=False):
     stats, fanout = _table_stats(arrays, meta)
     for v in W.check_table_stats(stats, fanout):
         logger.warning('cached instanced BVH quality (%s): %s', path, v)
-    return _unflatten('ga', arrays, meta)
+    # the builder's fingerprint definition (bvh.wide), so a schedule tuned
+    # on a built geometry applies to it loaded from the cache (perfcache)
+    packed, fmt = _bounds_fmt(meta)
+    fp = perfcache.fingerprint_rows(
+        arrays['ga.wide.rows'],
+        extra=(int(meta['ga.wide.fanout'][1]),
+               int(meta['ga.wide.leaf_size'][1]), packed,
+               int(meta['ga.wide.n_instances'][1]), fmt))
+    ga = _unflatten('ga', arrays, meta)
+    perfcache.register(ga.wide, fp)
+    return ga

@@ -23,6 +23,7 @@ import os
 import numpy as np
 import torch
 
+from chroma_tpu_torch import perfcache
 from chroma_tpu_torch.geometry import standard_wavelengths, standard_times
 from chroma_tpu_torch.bvh.wide import build_instanced_bvh, InstancedBVH
 
@@ -571,6 +572,10 @@ def from_jax_arrays(ga):
                         fanout=w.fanout, leaf_size=w.leaf_size,
                         n_instances=w.n_instances, packed=w.packed,
                         bounds_fmt=w.bounds_fmt)
+    # the fingerprint chroma_tpu's builder registered for this table
+    perfcache.register(wide, perfcache.fingerprint_rows(
+        np.asarray(w.rows), extra=(w.fanout, w.leaf_size, w.packed,
+                                   w.n_instances, w.bounds_fmt)))
     inst = None if ga.inst is None else \
         _from_jax_struct(InstanceArrays, ga.inst)
     det = None if ga.detector is None else \

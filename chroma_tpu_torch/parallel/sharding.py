@@ -3,13 +3,14 @@
 Photons are data-parallel over the ranks of a torch.distributed process
 group, one process a device, and the geometry is replicated: every rank
 builds or loads it itself. Rank r propagates its contiguous slice of the
-batch with the port's own driver (ops.propagate.propagate) and its own
-random streams, compacting on its own, with no collective inside the step
-loop; then the slices are gathered, bit for bit, into the full batch in
-input lane order on every rank, as the JAX package returns one global
-array. The DAQ runs on each rank's slice and its channel readouts are
-reduced across the ranks with the reference's atomic semantics
-(daq.cu:73-75):
+batch with the port's own driver and its own random streams, compacting
+on its own, with no collective inside the step loop:
+ops.propagate.propagate with tune=False, so that on the fused route a
+rank runs schedule_for's schedule for its slice and never probes. Then
+the slices are gathered, bit for bit, into the full batch in input lane
+order on every rank, as the JAX package returns one global array. The
+DAQ runs on each rank's slice and its channel readouts are reduced
+across the ranks with the reference's atomic semantics (daq.cu:73-75):
 
   earliest hit time  -> all_reduce MIN
   channel charge     -> all_reduce SUM
@@ -203,14 +204,17 @@ def _local_slice(photons, mesh):
 
 def _propagate_local(photons, geometry, seed, max_steps, mesh, use_weights,
                      scatter_first, compact=True, step_chunk='auto'):
-    "Propagate this rank's slice alone; returns it."
+    """Propagate this rank's slice alone; returns it. On the fused route
+    a rank runs schedule_for's schedule for its slice (the single-card
+    tuned entry, or the probe schedule) and never probes, as
+    chroma_tpu's sharded bomb never does."""
     local = _local_slice(photons, mesh)
+    rseed = shard_seed(seed, mesh)
     with profiler.region('sharded.propagate[n=%d]' % len(local)):
-        return propagate(local, geometry, shard_seed(seed, mesh),
-                         max_steps=max_steps,
-                         step_chunk=step_chunk if compact else max_steps,
-                         use_weights=use_weights,
-                         scatter_first=scatter_first)
+        return propagate(local, geometry, rseed, max_steps=max_steps,
+                         step_chunk=step_chunk, use_weights=use_weights,
+                         scatter_first=scatter_first, compact=compact,
+                         tune=False)
 
 
 def propagate_sharded(photons, geometry, seed, max_steps=100, mesh=None,

@@ -58,7 +58,9 @@ class Simulation:
         BVH it gets the one loader.create_geometry_from_obj loads or builds
         (through the port's cache), when `Simulation.detector` is first
         read: the device path never reads it. step_chunk: steps per chunk
-        between compactions ('auto' or an int). photon_tracking: record
+        between compactions ('auto' or an int) of the chunked driver,
+        which tracking takes (ops.propagate: other propagations take the
+        fused route unless CHROMA_FUSED=0). photon_tracking: record
         every photon's state after every step in Event.photon_tracks. The
         reference-only options (cuda_device, nthreads_per_block,
         max_blocks) are absorbed in compat_kwargs so call sites port

@@ -37,7 +37,8 @@ from chroma_tpu_torch.camera import (CameraPose, EventSource, EventViewer,
 from chroma_tpu_torch.ops import render
 from chroma_tpu_torch.ops import types as ttypes
 
-from test_torch_host import J, T, same_native_kit  # noqa: F401
+from test_torch_host import (J, T, fresh_perf_cache,  # noqa: F401
+                             same_native_kit)
 
 torch.set_num_threads(2)
 

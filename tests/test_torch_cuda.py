@@ -189,10 +189,13 @@ def _box_detector():
 
 
 @pytest.mark.cuda
-def test_device_source_simulation_and_facade(cuda):
+def test_device_source_simulation_and_facade(cuda, monkeypatch):
     """A PhotonState made on the card goes through Simulation and through
     GPUPhotons.propagate + GPUDaq with the same seed: equal end states,
-    hits and channels, and both launch the visit kernel."""
+    hits and channels, and both launch the visit kernel. Both take the
+    fused route by one schedule (the first bomb of a batch size would
+    otherwise probe and the second run the tuned schedule)."""
+    monkeypatch.setenv('CHROMA_FUSED_SCHEDULE', '1:2,2:2')
     det = _box_detector()
     state = _device_bomb(20000, 3, cuda)
 
@@ -251,7 +254,7 @@ def nccl_rank(n, seed):
 
 
 @pytest.mark.cuda
-def test_nccl_ranks_match_one_process(cuda):
+def test_nccl_ranks_match_one_process(cuda, monkeypatch):
     """propagate_and_daq_sharded over NCCL, one rank a card: each rank on
     its own card (and that card current), K1 launched in each, every rank
     the same result; the gathered state equals each slice propagated
@@ -266,6 +269,9 @@ def test_nccl_ranks_match_one_process(cuda):
     k = torch.cuda.device_count()
     if k < 2:
         pytest.skip('needs two or more cards: NCCL takes one rank a card')
+    # one fused schedule in the ranks (which inherit it) and here, where
+    # the first slice alone would otherwise probe and the next be tuned
+    monkeypatch.setenv('CHROMA_FUSED_SCHEDULE', '1:2,2:2')
     seed = 13
     res = run_ranks(nccl_rank, k, args=(N_SHARDED, seed), backend='nccl',
                     timeout=600)
@@ -419,3 +425,103 @@ def test_photon_map_card_against_cpu(cuda):
         rays.pos, rays.dir, ga.to(cuda), (3, 0), nphotons=20000, nbatches=2))
     assert visit_kernel.launches > before
     assert (pix >> 24 == 0xFF).all() and ((pix & 0xFFFFFF) != 0).mean() > 0.9
+
+
+def _tiny_on(cuda):
+    from chroma_tpu_torch import demo
+    geo = demo.tiny()
+    geo.flatten()
+    return build_geometry_arrays(geo).to(cuda)
+
+
+FUSED_FIELDS = ('pos', 'dir', 'pol', 'wavelength', 't', 'weight', 'flags',
+                'last_hit_triangle', 'evidx', 'cur_mat')
+
+
+@pytest.mark.cuda
+def test_graph_replay_matches_eager_fused_route(cuda):
+    """The fused bomb on demo.tiny(), one schedule and seed: with every
+    step a CUDA graph replay (after the first step at each width, which
+    runs eagerly and is captured) and with every step eager, every
+    PhotonState field equal bit for bit; K1 launched once a step either
+    way (a stage stops a few no-op steps after its last lane died, as many
+    as its poll lags behind the card)."""
+    from chroma_tpu_torch.ops import graphs
+    from chroma_tpu_torch.ops import propagate as P
+    ga = _tiny_on(cuda)
+    state = _device_bomb(1 << 15, 7, cuda)
+    sched = ((1, 2), (2, 2), (4, 2))
+    out = {}
+    for use_graphs in (False, True, True):
+        launches, replays = visit_kernel.launches, graphs.replays
+        res, _, abort = P._fused_bomb(state, ga, (9, 2), sched, 100,
+                                      use_graphs=use_graphs)
+        torch.cuda.synchronize()
+        assert not abort
+        out.setdefault(use_graphs, []).append(
+            (res, visit_kernel.launches - launches,
+             graphs.replays - replays))
+    (eager, k_eager, r_eager), = out[False]
+    assert r_eager == 0 and k_eager > 0
+    for res, k, r in out[True]:
+        for name in FUSED_FIELDS:
+            assert torch.equal(getattr(res, name), getattr(eager, name)), \
+                name
+    (_, k_cold, r_cold), (_, k_warm, r_warm) = out[True]
+    assert 0 < r_cold < k_cold          # the eager steps before captures
+    assert k_warm == r_warm > 0         # warm: every step a replay
+
+
+@pytest.mark.cuda
+def test_replay_adds_the_captured_k1_launches(cuda):
+    """A replay moves visit_kernel.launches by the K1 launches its capture
+    recorded (one), and the capture itself by none."""
+    from chroma_tpu_torch.ops import graphs
+    ga = _tiny_on(cuda)
+    state = _device_bomb(4096, 8, cuda)
+    before = visit_kernel.launches
+    g = graphs.StepGraph(ga, state, False, 0, True)
+    assert visit_kernel.launches == before and g.k1 == 1
+    for step in range(3):
+        g.replay(4, step)
+        assert visit_kernel.launches == before + g.k1 * (step + 1)
+    torch.cuda.synchronize()
+    assert g.n_replays == 3
+
+
+def _wire_box():
+    "A water box with one absorbing wire plane (a step reads on the host)."
+    from chroma_tpu_torch.geometry import WirePlane
+    absorber = Surface('absorber')
+    absorber.set('absorb', 1.0)
+    geo = Geometry(vacuum)
+    geo.add_solid(Solid(box(2000.0, 2000.0, 2000.0), water, vacuum,
+                        surface=absorber))
+    geo.add_wireplane(WirePlane(
+        origin=(0.0, 0.0, 0.0), u=(1.0, 0.0, 0.0), v=(0.0, 1.0, 0.0),
+        pitch=3.0, radius=0.15, umin=-500, umax=500, vmin=-500, vmax=500,
+        surface=absorber, material_inner=glass, material_outer=water))
+    geo.flatten()
+    return geo
+
+
+@pytest.mark.cuda
+def test_capture_with_host_sync_raises(cuda):
+    """Capturing a step that reads a device value on the host (a wire
+    plane's window count) raises, with no eager retry; the card stays
+    usable, and the fused route gives wire planes eager steps."""
+    from chroma_tpu_torch.ops import graphs
+    from chroma_tpu_torch.ops import propagate as P
+    ga = build_geometry_arrays(_wire_box()).to(cuda)
+    state = _device_bomb(4096, 9, cuda)
+    before = visit_kernel.launches
+    with pytest.raises(RuntimeError):
+        graphs.capture(ga, state, False, 0, True)
+    assert visit_kernel.launches == before
+    assert graphs.lookup(ga, state, False, 0, True) is None
+    torch.cuda.synchronize()
+    replays = graphs.replays
+    res, _, _ = P._fused_bomb(state, ga, 3, ((1, 2),), 100)
+    torch.cuda.synchronize()
+    assert graphs.replays == replays and visit_kernel.launches > before
+    assert not res.alive.any()

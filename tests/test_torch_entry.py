@@ -39,7 +39,8 @@ from chroma_tpu_torch.ops import types as ttypes
 from chroma_tpu_torch.ops.propagate import photon_state_from_host
 from chroma_tpu_torch.profiler import profiler
 
-from test_torch_host import J, T, _box_detector, same_native_kit  # noqa: F401
+from test_torch_host import (J, T, _box_detector,  # noqa: F401
+                             fresh_perf_cache, same_native_kit)
 
 torch.set_num_threads(2)
 
@@ -726,8 +727,11 @@ def test_cli_geo(tmp_path, cli_cache, capsys):
     assert sorted(tcache.Cache().list_geometry()) == ['.default', 'cube']
 
 
-def test_cli_profile(tmp_path, cli_cache):
+def test_cli_profile(tmp_path, cli_cache, monkeypatch):
     from chroma_tpu_torch.cli import profile
+    # the chunked driver's regions and counters (the fused route's are in
+    # test_torch_fused.py::test_cli_profile_fused_regions)
+    monkeypatch.setenv('CHROMA_FUSED', '0')
     buf = io.StringIO()
     with redirect_stdout(buf):
         profile.main(['@chroma_tpu_torch.demo.tiny', '-p', '1000', '-n', '2',

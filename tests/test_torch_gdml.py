@@ -15,7 +15,7 @@ from chroma_tpu_torch.ops import types as ttypes
 
 from test_gdml import BOOL_GDML, GDML
 from test_torch_host import (J, T, _assert_struct,  # noqa: F401
-                             same_native_kit)
+                             fresh_perf_cache, same_native_kit)
 
 torch.set_num_threads(2)
 

@@ -31,6 +31,8 @@ from chroma_tpu import native as jnative
 from chroma_tpu.ops import types as jtypes
 import chroma_tpu_torch
 from chroma_tpu_torch import native as tnative
+from chroma_tpu_torch import perfcache as tperf
+from chroma_tpu_torch.ops import propagate as tprop
 from chroma_tpu_torch.ops import types as ttypes
 
 torch.set_num_threads(2)
@@ -85,6 +87,23 @@ def same_native_kit():
     port test modules that build a geometry in each package import it."""
     with pytest.MonkeyPatch.context() as mp:
         same_kit(mp, 'native')
+        yield
+
+
+@pytest.fixture(scope='module', autouse=True)
+def fresh_perf_cache(tmp_path_factory):
+    """The port's learned schedules start empty for the whole module:
+    CHROMA_CACHE_DIR (which spawned ranks inherit) points at a new
+    directory, and the session caches are emptied. A fused bomb's result
+    depends on its schedule (the probe's on the first bomb of a batch
+    size, a tuned one after it), so no test may read one that an earlier
+    run or module left behind. Port test modules that propagate import
+    it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv('CHROMA_CACHE_DIR', str(tmp_path_factory.mktemp('cache')))
+        mp.setattr(tperf, '_DISK', {})
+        mp.setattr(tprop, '_SCHED_CACHE', {})
+        mp.setattr(tprop, '_PROBE_COUNTS', {})
         yield
 
 

@@ -18,7 +18,8 @@ from chroma_tpu_torch.event import REFLECT_DIFFUSE
 from chroma_tpu_torch.ops import render
 from chroma_tpu_torch.ops import types as ttypes
 
-from test_torch_host import J, T, same_native_kit  # noqa: F401
+from test_torch_host import (J, T, fresh_perf_cache,  # noqa: F401
+                             same_native_kit)
 from test_torch_photon import (assert_states_match, jax_blocks,
                                torch_state)
 from test_torch_render import _t, assert_pixels_match, get_scene

@@ -16,7 +16,8 @@ import chroma_tpu_torch
 from chroma_tpu_torch.ops import daq as tdaq
 from chroma_tpu_torch.ops import pdf as tpdf
 
-from test_torch_host import J, T, _box_detector, same_native_kit  # noqa: F401
+from test_torch_host import (J, T, _box_detector,  # noqa: F401
+                             fresh_perf_cache, same_native_kit)
 
 torch.set_num_threads(2)
 

@@ -29,7 +29,8 @@ from chroma_tpu_torch.camera import Rays
 from chroma_tpu_torch.ops import render, transform
 from chroma_tpu_torch.ops import types as ttypes
 
-from test_torch_host import J, T, same_native_kit  # noqa: F401
+from test_torch_host import (J, T, fresh_perf_cache,  # noqa: F401
+                             same_native_kit)
 
 torch.set_num_threads(2)
 

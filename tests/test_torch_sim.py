@@ -24,7 +24,8 @@ import torch
 from chroma_tpu.ops.types import build_geometry_arrays
 import chroma_tpu_torch
 
-from test_torch_host import J, T, _box_detector, same_native_kit  # noqa: F401
+from test_torch_host import (J, T, _box_detector,  # noqa: F401
+                             fresh_perf_cache, same_native_kit)
 
 torch.set_num_threads(2)
 

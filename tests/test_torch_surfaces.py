@@ -31,7 +31,8 @@ from chroma_tpu_torch.ops import photon
 from chroma_tpu_torch.ops import types as ttypes
 from chroma_tpu_torch.ops.sample import DrawPool
 
-from test_torch_host import J, T, same_native_kit  # noqa: F401
+from test_torch_host import (J, T, fresh_perf_cache,  # noqa: F401
+                             same_native_kit)
 from test_torch_photon import (FLOAT_FIELDS, INT_FIELDS, jax_blocks,
                                torch_state)
 

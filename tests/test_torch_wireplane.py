@@ -19,7 +19,8 @@ from chroma_tpu_torch.ops.propagate import photon_state_from_host, propagate
 from chroma_tpu_torch.ops.wireplane import (candidate_windows,
                                             intersect_wireplanes)
 
-from test_torch_host import J, T, same_native_kit  # noqa: F401
+from test_torch_host import (J, T, fresh_perf_cache,  # noqa: F401
+                             same_native_kit)
 
 torch.set_num_threads(2)
 
