@@ -14,10 +14,12 @@ Phases, each printing its results; any failure raises and the exit code is
 non-zero:
 
   0. card and software (nvidia-smi name and power limit, torch, CUDA);
-  1. build, both at once, into build/: the visit kernel
-     (chroma_tpu_torch/csrc/visit_kernel.cu) with nvcc and the host
-     geometry kit (chroma_tpu_torch/csrc/geometry_kit.cpp) with g++;
-     print ptxas's registers and spills;
+  1. build, all at once, into build/: the three kernels with nvcc -- K1,
+     the visit kernel (chroma_tpu_torch/csrc/visit_kernel.cu), K2, the
+     step after the query (csrc/step_kernel.cu), K3, the wire walk
+     (csrc/wire_walk.cu) -- and the host geometry kit
+     (chroma_tpu_torch/csrc/geometry_kit.cpp) with g++; print ptxas's
+     registers and spills for each kernel;
   2. the kernel against its plain PyTorch version on the card, on 10^4
      rays (a grid of one group a ray) and on 2^18 (persistent groups),
      on the visit-kernel fixture geometry, on demo.tiny() and on the quick
@@ -47,10 +49,13 @@ non-zero:
      counted (each must be non-zero) and its detected fraction against a
      65,536-photon CPU run;
   7. wire planes ("lartpc-wires"): three absorbing U/V/Y anode planes in a
-     2 m liquid-argon box; intersect_wireplanes card vs CPU on 65,536 rays
-     (hits equal, distances to rtol 1e-5), then a 2^20-photon Simulation
-     with the share of photons absorbed on wires and the candidate-wire
-     iterations per plane;
+     2 m liquid-argon box; intersect_wireplanes card (K3) vs CPU on
+     65,536 rays (hits equal, distances to rtol 1e-5); the first step of
+     the 2^20-photon bomb (ms, cold and warm); then 2^20-photon
+     Simulations on the graph route (probe, then tuned bombs, captures
+     and replays > 0, K3 launched every step) in turns with the chunked
+     driver, with the share of photons absorbed on wires and the
+     candidate-wire iterations per plane;
   8. likelihood: a 10 MeV electron's ~10^4 photons in the quick-optics
      detector as the observed event; Likelihood.eval (nreps=4, ndaq=50,
      nevals=4), setup_kernel and eval_kernel (navg=2), create_pdf; the
@@ -107,14 +112,16 @@ non-zero:
      against a single-process emulation, bit for bit; two calls with one
      seed equal; every rank's K1 launches; the wall against phase 5's.
  12. the fused bomb, the default route of ops.propagate since phases 5-11
-     took it (each stage's step a CUDA graph with K1 inside, after the
-     first step at its width, which runs eagerly; wire planes take eager
-     steps, phase 7 prints it):
+     took it (each stage's step a CUDA graph with K1, K2 and, on wire
+     planes, K3 inside, after the first step at its width, which runs
+     eagerly):
      a. the tuner's cost model on this card: graph-replayed quick-detector
         steps from 2^11 to 2^20 lanes and the boundaries between stages,
-        fitted to lines, printed as ops.propagate's three constants;
-     b. a 65,536-photon fused bomb with every step eager and with graph
-        replays, same seed: every field equal bit for bit;
+        fitted to lines, printed as ops.propagate's three constants; the
+        step prologue's aten ops, device kernels and ms;
+     b. 65,536-photon fused bombs on the quick detector and on
+        lartpc-wires with every step eager and with graph replays, same
+        seed: every field equal bit for bit;
      c. the quick detector's phase-5 bomb through new Simulations: a probe
         (fresh schedule caches), then tuned and chunked (CHROMA_FUSED=0)
         bombs in turns, each with its wall, schedule, captures and capture
@@ -123,13 +130,21 @@ non-zero:
         fraction against phase 5's CPU run;
      d. quick-optics' bomb and e. Likelihood.eval (nevals 1) on both
         routes in turns.
+ 13. K2 and K3 against their plain twins on the card: K2 on 2^20 lanes
+     (after two steps) of the quick detector, quick-optics (plain,
+     use_weights, scatter_first 1 and -1) and lartpc-wires, same inputs
+     (the prologue, K1, K3 of the step): integer fields and floats to
+     rtol 1e-5 on all but at most 0.1% of the lanes (printed); K3 on the
+     2^20 rays of phase 7's bomb: planes equal, floats to rtol 1e-5; each
+     timed in turns with its twin at 2^11, 2^15 and 2^20 lanes, with its
+     bound.
 
-The kernel's launches are counted on each main path (phases 5 to 12, reset
-just before and read just after; a graph replay adds the K1 launches its
-capture holds) and printed per phase; the first design is launched on none
-of them. The last lines are a JSON object describing the
-kernels, and {"ok": true, "device": {...}}. Needs CUDA and the repository
-checkout.
+The kernels' launches (K1, K2, K3) are counted on each main path (phases 5
+to 12, reset just before and read just after; a graph replay adds the
+launches its capture holds) and printed per phase; the first design of K1
+is launched on none of them. The last lines are a JSON object describing
+the kernels, and {"ok": true, "device": {...}}. Needs CUDA and the
+repository checkout.
 """
 import collections
 import contextlib
@@ -177,6 +192,39 @@ PEAK_F32_S = 67e12
 
 def log(*args):
     print(*args, flush=True)
+
+
+class Launches(int):
+    """K1's launches on a path (the int, as every phase reports them),
+    with K2's and K3's beside it (`k2`, `k3`); sums add all three."""
+
+    def __new__(cls, k1, k2=0, k3=0):
+        self = super().__new__(cls, k1)
+        self.k2, self.k3 = k2, k3
+        return self
+
+    def __add__(self, other):
+        return Launches(int(self) + int(other),
+                        self.k2 + getattr(other, 'k2', 0),
+                        self.k3 + getattr(other, 'k3', 0))
+
+    __radd__ = __add__
+
+    def triple(self):
+        return [int(self), self.k2, self.k3]
+
+
+def zero_launches():
+    "Set the launch counts of K1, K2 and K3 to 0."
+    from chroma_tpu_torch.ops import step_kernel, visit_kernel, wire_kernel
+    visit_kernel.launches = step_kernel.launches = wire_kernel.launches = 0
+
+
+def launches_now():
+    "The launch counts of K1, K2 and K3 since zero_launches()."
+    from chroma_tpu_torch.ops import step_kernel, visit_kernel, wire_kernel
+    return Launches(visit_kernel.launches, step_kernel.launches,
+                    wire_kernel.launches)
 
 
 def card_line():
@@ -612,7 +660,6 @@ def run_main_path(sim, n, seed, pos=(0, 0, 0), run_daq=True):
     """A bomb of n 400 nm photons from `pos` through sim.simulate, with
     the visit kernel's launches counted from 0 and the rays of each query
     logged: returns (event, wall s, NaN aborts, launches)."""
-    from chroma_tpu_torch.ops import visit_kernel
     import torch
     from chroma_tpu_torch.generator import photon_bomb
     from chroma_tpu_torch import event
@@ -620,7 +667,7 @@ def run_main_path(sim, n, seed, pos=(0, 0, 0), run_daq=True):
     bomb = photon_bomb(n, 400.0, pos)
     if sim.device.type == 'cuda':
         torch.cuda.synchronize()
-    visit_kernel.launches = 0
+    zero_launches()
     before = {k: g.n_replays
               for k, g in graph_cache(sim.gpu_geometry).items()}
     with launch_rays() as sizes:
@@ -630,7 +677,7 @@ def run_main_path(sim, n, seed, pos=(0, 0, 0), run_daq=True):
         if sim.device.type == 'cuda':
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = visit_kernel.launches
+    launches = launches_now()
     replayed = {k[0]: g.n_replays - before.get(k, 0)
                 for k, g in graph_cache(sim.gpu_geometry).items()
                 if g.n_replays > before.get(k, 0)}
@@ -693,10 +740,12 @@ def phase_quick_optics(device, card):
 
 
 def phase_lartpc(device, card):
-    """Phase 7: analytic wire planes, card against CPU, and a 2^20 bomb on
-    the declared route (the fused driver with eager steps: the probe,
-    then tuned bombs) in turns with the chunked driver. Returns (K1
-    launches by path, a row a bomb)."""
+    """Phase 7: analytic wire planes, card against CPU; the first step of
+    the 2^20-photon bomb (its ms, cold and warm); and the bomb on the
+    declared route (the fused driver, each stage's step a CUDA graph with
+    K1, K3 and K2 in it: the probe, then tuned bombs) in turns with the
+    chunked driver. Returns (launches by path, a row a bomb, the
+    geometry's arrays)."""
     import torch
     import chroma_tpu_torch
     from chroma_tpu_torch import event
@@ -742,6 +791,9 @@ def phase_lartpc(device, card):
         i, float(w.float().mean()), float(w[w > 0].float().mean()),
         int(w.max())) for i, w in enumerate(windows)]
     log('  candidate-wire iterations of the first step: ' + '; '.join(stats))
+    first_ms = first_step_ms(g, bomb, device)
+    log('  the first step of the bomb (%d lanes, eager: prologue, K1, K3, '
+        'K2), ms: cold %.3f, warm %.3f (%s)' % (N_BOMB, *first_ms, card))
     # the probe bomb on the declared route, then tuned and chunked bombs
     # of the same photons in turns
     rows = []
@@ -776,11 +828,9 @@ def phase_lartpc(device, card):
         row = dict(kind=kind, wall_s=wall, on_wire=float(on_wire.mean()),
                    **stats)
         if route == 'fused':
-            # the declared route: the fused driver with eager steps, since
-            # a wire plane's window count is read on the host
-            # (ops.wireplane)
-            assert stats['captures'] == stats['replays'] == 0
-            assert stats['blocking_reads'] <= len(sched) + 1, stats
+            # the declared route: the fused driver, its steps graphs
+            check_fused(stats, sched)
+            assert stats['launches'].k3 == stats['launches'], stats
             row['schedule'] = sched
         else:
             detected_fraction_check(row['on_wire'], N_BOMB,
@@ -791,18 +841,46 @@ def phase_lartpc(device, card):
                                     rows[0]['on_wire'], N_BOMB,
                                     'absorbed on wires, tuned vs probe')
         rows.append(row)
-    log('  route: fused driver, eager steps (wire planes); by bomb, in '
-        'turns: %s' % json.dumps(rows))
-    log('  lartpc-wires wall: probe %.3f s, tuned %s s, chunked %s s' % (
-        rows[0]['wall_s'],
-        ['%.3f' % r['wall_s'] for r in rows if r['kind'] == 'tuned'],
-        ['%.3f' % r['wall_s'] for r in rows if r['kind'] == 'chunked']))
+    fused = [r for r in rows if r['kind'] != 'chunked']
+    assert sum(r['captures'] for r in fused) > 0
+    assert sum(r['replays'] for r in fused) > 0
+    log('  route: fused driver, graph replays (K1, K3, K2 a step); by bomb, '
+        'in turns: %s' % json.dumps(rows))
+    log('  lartpc-wires wall: probe %.3f s, tuned %s s, chunked %s s; '
+        'captures %d, replays %d on the fused bombs; first step %.3f ms '
+        'cold, %.3f warm' % (
+            rows[0]['wall_s'],
+            ['%.3f' % r['wall_s'] for r in rows if r['kind'] == 'tuned'],
+            ['%.3f' % r['wall_s'] for r in rows if r['kind'] == 'chunked'],
+            sum(r['captures'] for r in fused),
+            sum(r['replays'] for r in fused), *first_ms))
+    rows.append(dict(kind='first step', cold_ms=first_ms[0],
+                     warm_ms=first_ms[1]))
     launches = {'7 lartpc-wires': rows[0]['launches'],
                 '7 lartpc-wires tuned': sum(
                     r['launches'] for r in rows if r['kind'] == 'tuned'),
                 '7 lartpc-wires chunked': sum(
                     r['launches'] for r in rows if r['kind'] == 'chunked')}
-    return launches, rows
+    return launches, rows, ga
+
+
+def first_step_ms(geometry, bomb, device):
+    """Milliseconds of one eager propagate_step of host photons `bomb` on
+    the card, the first at its width (cold) and a second one (warm)."""
+    import torch
+    from chroma_tpu_torch.ops.photon import propagate_step
+    from chroma_tpu_torch.ops.propagate import photon_state_from_host
+    from chroma_tpu_torch.ops.sample import DrawPool, make_generator
+    state = photon_state_from_host(bomb, device)
+    out = []
+    for seed in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        propagate_step(state, geometry, DrawPool(
+            len(state), device, generator=make_generator(device, seed)))
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
 
 
 def hit_channels_per_readout(sim, events, nreps, ndaq, trange):
@@ -831,7 +909,6 @@ def phase_likelihood(geo, ga, sim, card):
     import torch
     import chroma_tpu_torch
     from chroma_tpu_torch.likelihood import Likelihood
-    from chroma_tpu_torch.ops import visit_kernel
 
     obs = next(sim.simulate(itertools.islice(likelihood_gun(12), 1),
                             run_daq=True, max_steps=100))
@@ -839,7 +916,7 @@ def phase_likelihood(geo, ga, sim, card):
     nevals, nreps, ndaq = LIKELIHOOD
     log('phase 8: likelihood, observed event: %d photons, %d channels hit'
         % (obs.nphotons, int(obs.channels.hit.sum())))
-    visit_kernel.launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     nll = lk.eval(likelihood_gun(13), nevals, nreps=nreps, ndaq=ndaq)
@@ -857,7 +934,7 @@ def phase_likelihood(geo, ga, sim, card):
                           ndaq=ndaq, navg=2)
     torch.cuda.synchronize()
     kwall = time.perf_counter() - t0
-    launches = visit_kernel.launches
+    launches = launches_now()
     log('  setup_kernel + eval_kernel (navg=2): NLL %.3f +- %.3f, wall '
         '%.3f s, %.2f propagations/s; visit-kernel launches in phase 8: %d'
         % (knll.nominal_value, knll.s, kwall, 3 * props / kwall,
@@ -1081,19 +1158,18 @@ def phase_device_source(quick_geo, loaded, device, card, phase5):
     9b's wall)."""
     import chroma_tpu_torch
     from chroma_tpu_torch import gpu
-    from chroma_tpu_torch.ops import visit_kernel
     from chroma_tpu_torch.profiler import profiler
     state = device_bomb(N_BOMB, 90, device)
     sim = chroma_tpu_torch.Simulation(quick_geo, seed=0, device='cuda',
                                       gpu_geometry=loaded)
     profiler.reset()
     profiler.enabled = True
-    visit_kernel.launches = 0
+    zero_launches()
     with host_photons_before_propagation() as built:
         ev, wall = timed(lambda: next(sim.simulate(
             state, run_daq=True, keep_photons_end=True,
             max_steps=MAX_STEPS)))
-    launches_b = visit_kernel.launches
+    launches_b = launches_now()
     profiler.enabled = False
     frac5, wall5 = phase5
     log('phase 9b: device-resident source, %d photons made on the card, '
@@ -1125,16 +1201,16 @@ def phase_device_source(quick_geo, loaded, device, card, phase5):
         src = host if name == 'host Photons' else uploaded
         psim = chroma_tpu_torch.Simulation(quick_geo, seed=4, device='cuda',
                                            gpu_geometry=loaded)
-        visit_kernel.launches = 0
+        zero_launches()
         pev, pwall = timed(lambda: next(psim.simulate(
             src, run_daq=True, keep_photons_end=True, max_steps=MAX_STEPS)))
-        pair[name].append((pwall, visit_kernel.launches, len(pev.flat_hits)))
+        pair[name].append((pwall, launches_now(), len(pev.flat_hits)))
     log('  the same %d host photons, seed 4, in turns (wall s, K1 launches, '
         'detected): %s' % (N_BOMB, json.dumps(pair)))
     assert len({runs[1:] for runs in sum(pair.values(), [])}) == 1, \
         'the two sources gave different histories'
 
-    visit_kernel.launches = 0
+    zero_launches()
     gg = gpu.GPUGeometry(quick_geo, arrays=loaded, device='cuda')
     gp = gpu.GPUPhotons(state)
     rng = gpu.get_rng_states(N_BOMB, seed=0)
@@ -1146,7 +1222,7 @@ def phase_device_source(quick_geo, loaded, device, card, phase5):
         daq.acquire(gp, rng)
         return daq.end_acquire().get()
     channels, fwall = timed(facade)
-    launches_c = visit_kernel.launches
+    launches_c = launches_now()
     end = gp.get()
     log('phase 9c: GPUPhotons(state).propagate(GPUGeometry) + GPUDaq, seed '
         '0: wall %.3f s, visit-kernel launches %d' % (fwall, launches_c))
@@ -1183,7 +1259,6 @@ def phase_tracking(quick_geo, loaded, card):
     untracked. Returns (launches, tracked wall, untracked wall)."""
     import chroma_tpu_torch
     from chroma_tpu_torch.generator import photon_bomb
-    from chroma_tpu_torch.ops import visit_kernel
     from chroma_tpu_torch.profiler import profiler
     walls, events, launches = {}, {}, 0
     for run, tracking in enumerate((False, True, False, True)):
@@ -1192,14 +1267,14 @@ def phase_tracking(quick_geo, loaded, card):
                                           photon_tracking=tracking)
         np.random.seed(91)
         bomb = photon_bomb(N_TRACK, 400.0, (0, 0, 0))
-        visit_kernel.launches = 0
+        zero_launches()
         profiler.enabled = run >= 2     # the last pair: where time goes
         ev, wall = timed(lambda: next(sim.simulate(
             bomb, keep_photons_end=True, max_steps=MAX_STEPS)))
         profiler.enabled = False
         walls.setdefault(tracking, []).append(wall)
         if tracking:
-            launches = visit_kernel.launches
+            launches = launches_now()
         events[tracking] = (bomb, ev)
     bomb, ev = events[True]
     tracks, end = ev.photon_tracks, ev.photons_end
@@ -1235,15 +1310,17 @@ def phase_tracking(quick_geo, loaded, card):
 
 def run_tool(module, args, env):
     """`python -m module args` as a subprocess through runpy (what -m
-    does), then the visit kernel's launches in that process: (stdout,
-    stderr, launches)."""
+    does), then the kernels' launches in that process: (stdout, stderr,
+    Launches)."""
     prelude = ('import runpy, sys, time; sys.argv[0] = %r; '
                't0 = time.perf_counter(); '
                'runpy.run_module(%r, run_name="__main__", alter_sys=True); '
                'print("tool seconds %%.3f" %% (time.perf_counter() - t0), '
                'file=sys.stderr); '
-               'from chroma_tpu_torch.ops import visit_kernel; '
+               'from chroma_tpu_torch.ops import (step_kernel, '
+               'visit_kernel, wire_kernel); '
                'print("visit-kernel launches", visit_kernel.launches, '
+               'step_kernel.launches, wire_kernel.launches, '
                'file=sys.stderr)' % (module, module))
     proc = subprocess.run([sys.executable, '-c', prelude, *args], env=env,
                           cwd=os.path.dirname(os.path.abspath(__file__)),
@@ -1251,8 +1328,8 @@ def run_tool(module, args, env):
     if proc.returncode != 0:
         raise RuntimeError('%s failed (%d):\n%s' % (module, proc.returncode,
                                                     proc.stderr[-4000:]))
-    launches = int(re.findall(r'visit-kernel launches (\d+)',
-                              proc.stderr)[-1])
+    launches = Launches(*map(int, re.findall(
+        r'visit-kernel launches (\d+) (\d+) (\d+)', proc.stderr)[-1]))
     return proc.stdout, proc.stderr, launches
 
 
@@ -1511,14 +1588,14 @@ def phase_render(quick_geo, quick, quick_dev, device, card, out_dir):
                     geometry_arrays=quick_dev, device=device)
     rays = pose.rays(RENDER_SIZE, device=device)
     walls, frames = [], []
-    visit_kernel.launches = 0
+    zero_launches()
     for _ in range(N_FRAMES):
         image, wall = timed(lambda: _pixels_to_image(
             rays.render(quick_dev, ALPHA_DEPTH), RENDER_SIZE))
         walls.append(wall)
         frames.append(image)
         rays.rotate_around_point(0.05, (0.0, 0.0, 1.0), center)
-    launches = visit_kernel.launches
+    launches = launches_now()
     wall = float(np.median(walls))
     nrays = RENDER_SIZE[0] * RENDER_SIZE[1]
     shares = [shown(f) for f in frames]
@@ -1586,13 +1663,12 @@ def phase_viewer(quick_geo, quick_dev, tiny_geo, ev5, device, card, work):
     from chroma_tpu_torch.generator import photon_bomb
     from chroma_tpu_torch.loader import load_bvh
     from chroma_tpu_torch.make import box
-    from chroma_tpu_torch.ops import visit_kernel
     size = VIEWER_SIZE
     pose, scale, center = _scene_pose(quick_geo)
     cam = Camera(quick_geo, size=size, alpha_depth=ALPHA_DEPTH,
                  device=device)
     cam._scale = scale
-    visit_kernel.launches = 0
+    zero_launches()
     mono = cam._frame(quick_dev, pose, False, False, (0, 0))
     stereo = cam._frame(quick_dev, pose, True, False, (0, 0))
     red = int((stereo[..., 0] != mono[..., 0]).sum())
@@ -1647,7 +1723,7 @@ def phase_viewer(quick_geo, quick_dev, tiny_geo, ev5, device, card, work):
                        alpha_depth=ALPHA_DEPTH)
     assert torch.equal(pix, rays.render(quick_dev, ALPHA_DEPTH))
     assert (host.view(np.int32) == pix.cpu().numpy()).all()
-    launches = visit_kernel.launches
+    launches = launches_now()
     log('phase 10d: viewer frames at %d x %d through Camera._frame and '
         'EventViewer (%s): anaglyph differs from mono in the red of %d '
         'pixels; BVH layer 1 of demo.tiny(): %d boxes, %.4f of the frame; '
@@ -1664,7 +1740,7 @@ def phase_viewer(quick_geo, quick_dev, tiny_geo, ev5, device, card, work):
     # it gives the launches and the wall at the detector's width. A matte
     # room gives the lit image.
     inside = CameraPose(center, axis1=(0, 0, 1), axis2=(1, 0, 0))
-    visit_kernel.launches = 0
+    zero_launches()
     hybrid, wall = timed(lambda: cam._frame(quick_dev, inside, False, True,
                                             (0, 0)))
     room = matte_room()
@@ -1673,7 +1749,7 @@ def phase_viewer(quick_geo, quick_dev, tiny_geo, ev5, device, card, work):
                            axis2=(1, 0, 0))
     lit_room, room_wall = timed(lambda: room_cam._frame(
         room_cam._geometry_arrays(), room_pose, False, True, (0, 0)))
-    launches_h = visit_kernel.launches
+    launches_h = launches_now()
     lit = float(lit_room.any(axis=-1).mean())
     log('  photon map (hybrid_render, 4 batches of 100000 photons, %d x '
         '%d): from the centre of the quick detector wall %.3f s, %d pixels '
@@ -1741,7 +1817,6 @@ def phase_gdml(device, card, work):
     from chroma_tpu_torch.demo import optics
     from chroma_tpu_torch.gdml import GDMLLoader
     from chroma_tpu_torch.generator import photon_bomb
-    from chroma_tpu_torch.ops import visit_kernel
     path = os.path.join(work, 'smoke.gdml')
     with open(path, 'w') as fh:
         fh.write(GDML_DOC)
@@ -1771,7 +1846,7 @@ def phase_gdml(device, card, work):
     assert abs(drilled - want) / want < 0.02
     sim = chroma_tpu_torch.Simulation(det, seed=0, device='cuda')
     np.random.seed(94)
-    visit_kernel.launches = 0
+    zero_launches()
     ev, wall = timed(lambda: next(sim.simulate(
         photon_bomb(N_CHECK, 400.0, (0, 0, 0)), run_daq=True,
         keep_photons_end=True, max_steps=MAX_STEPS)))
@@ -1779,7 +1854,7 @@ def phase_gdml(device, card, work):
     aborts = int(((flags & event.NAN_ABORT) != 0).sum())
     image = snapshot(det, size=VIEWER_SIZE, alpha_depth=ALPHA_DEPTH,
                      geometry_arrays=sim.gpu_geometry, device=device)
-    launches = visit_kernel.launches
+    launches = launches_now()
     log('phase 10f: GDML detector (tank, PMT ball, a slab with a drilled '
         'hole: %d solids, %d triangles, %d channel; the boolean solid has '
         '%.4f of the analytic volume): %d-photon bomb in %.3f s, detected '
@@ -1807,7 +1882,6 @@ def sharded_rank(geocache, seed):
     from chroma_tpu_torch import event
     from chroma_tpu_torch.generator import photon_bomb
     from chroma_tpu_torch.io.geocache import load_geometry_arrays
-    from chroma_tpu_torch.ops import visit_kernel
     from chroma_tpu_torch.ops.propagate import photon_state_from_host
     from chroma_tpu_torch.parallel import (pad_to_mesh, photon_mesh,
                                            propagate_and_daq_sharded)
@@ -1844,13 +1918,13 @@ def sharded_rank(geocache, seed):
     torch.cuda.synchronize(mesh.device)
     profiler.reset()
     profiler.enabled = True
-    visit_kernel.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     ev = next(sim.simulate([bomb], run_daq=True, max_steps=MAX_STEPS,
                            keep_photons_end=True))
     torch.cuda.synchronize(mesh.device)
     out['wall'] = time.perf_counter() - t0
-    out['launches'] = visit_kernel.launches
+    out['launches'] = launches_now().triple()
     profiler.enabled = False
     out['regions'] = {name: st.total for name, st in
                       sorted(profiler.regions.items())}
@@ -1932,7 +2006,7 @@ def phase_sharded(loaded, work, card, phase5):
         # (c) repeatability, (d) launches
         digests = {d for r in res for d in r['digests']}
         assert len(digests) == 1, 'two calls with one seed differ'
-        per_rank = [r['launches'] for r in res]
+        per_rank = [Launches(*r['launches']) for r in res]
         assert min(per_rank) > 0, 'a rank launched no K1'
         launches += sum(per_rank)
         wall = max(r['wall'] for r in res)
@@ -1969,19 +2043,19 @@ MANY_EVENTS = 32             # phase 12f's likelihood events
 
 
 def fused_counters():
-    "Zero the counters of the fused route (K1, graphs, host reads)."
-    from chroma_tpu_torch.ops import graphs, visit_kernel
+    "Zero the counters of the fused route (K1-K3, graphs, host reads)."
+    from chroma_tpu_torch.ops import graphs
     from chroma_tpu_torch.ops import propagate as P
-    visit_kernel.launches = 0
+    zero_launches()
     graphs.captures, graphs.capture_s, graphs.replays = 0, 0.0, 0
     P.blocking_reads = P.throttle_waits = 0
 
 
 def fused_stats():
     "The counters fused_counters zeroed, read."
-    from chroma_tpu_torch.ops import graphs, visit_kernel
+    from chroma_tpu_torch.ops import graphs
     from chroma_tpu_torch.ops import propagate as P
-    return dict(launches=visit_kernel.launches, captures=graphs.captures,
+    return dict(launches=launches_now(), captures=graphs.captures,
                 capture_s=graphs.capture_s, replays=graphs.replays,
                 blocking_reads=P.blocking_reads,
                 throttle_waits=P.throttle_waits)
@@ -1989,11 +2063,12 @@ def fused_stats():
 
 def check_fused(stats, schedule):
     """A fused bomb's counters hold the route's contract: every step
-    launched K1 once, eagerly (one step before each capture) or in a
-    replay; at most one blocking read a stage boundary and one at the
+    launched K1 and K2 once, eagerly (one step before each capture) or in
+    a replay; at most one blocking read a stage boundary and one at the
     end."""
     assert stats['launches'] > 0
     assert stats['launches'] == stats['replays'] + stats['captures'], stats
+    assert stats['launches'].k2 == stats['launches'], stats
     assert stats['blocking_reads'] <= len(schedule) + 1, stats
 
 
@@ -2071,46 +2146,111 @@ def phase_cost_model(quick, device, card):
             consts['boundary_lanes'], P.SCHED_FLOOR_LANES,
             P.SCHED_BOUNDARY_FRAC, P.SCHED_BOUNDARY_LANES))
     assert a > 0 and all(np.isfinite(list(consts.values())))
+    prologue = prologue_cost(geo, big, device)
+    log('  the step prologue (NaN guard, uniform blocks, pruning limit): %d '
+        'aten ops, %d device kernels; ms by lanes %s (%s)' % (
+            prologue['aten_ops'], prologue['kernels'], ', '.join(
+                '%d: %.4f' % wt for wt in prologue['ms'].items()), card))
     return dict(step_ms=dict(zip(COST_WIDTHS, steps)),
                 boundary_ms=dict(zip(COST_WIDTHS, bounds)),
-                constants=consts, card=card)
+                constants=consts, prologue=prologue, card=card)
 
 
-def phase_replay_vs_eager(quick, device, card):
-    """Phase 12b: the fused bomb of FUSED_CHECK quick-detector photons
-    by FIXED_SCHEDULE, every step eager and every step a graph replay
-    (after its width's first, eager, step), same seed: every PhotonState
-    field equal bit for bit, K1 launched once a step either way (steps
-    after the last lane died change nothing, and their number depends on
-    how far the host runs ahead of the card)."""
+def prologue_cost(geo, big, device):
+    """The step prologue (photon.step_prologue) on the first lanes of
+    `big` after one step: its aten ops and device kernels (torch.profiler,
+    one call at 2^11 lanes) and its ms at 2^11 lanes and all of them
+    (2^20; CUDA events over COST_REPLAYS calls)."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    from chroma_tpu_torch.ops import photon
+    from chroma_tpu_torch.ops.sample import DrawPool, make_generator
+    state = photon.propagate_step(big, geo, DrawPool(
+        len(big), device, generator=make_generator(device, 3)))
+
+    def run(w):
+        sub = state.map(lambda a: a[:w])
+        photon.step_prologue(sub, geo, DrawPool(
+            w, device, generator=make_generator(device, 4)))
+    run(1 << 11)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(1 << 11)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    aten = sum(e.count for e in events if e.key.startswith('aten::')
+               and e.device_type == torch.autograd.DeviceType.CPU)
+    kernels = sum(e.count for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    ms = {}
+    for w in (1 << 11, len(state)):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(COST_REPLAYS):
+            run(w)
+        e1.record()
+        torch.cuda.synchronize()
+        ms[w] = e0.elapsed_time(e1) / COST_REPLAYS
+    return dict(aten_ops=aten, kernels=kernels, ms=ms)
+
+
+def phase_replay_vs_eager(geometries, device, card):
+    """Phase 12b: on each (name, arrays, source) of `geometries` (the
+    quick detector; lartpc-wires, whose steps launch K3 too), the fused
+    bomb of FUSED_CHECK photons from `source` by FIXED_SCHEDULE, every
+    step eager and every step a graph replay (after its width's first,
+    eager, step), same seed: every PhotonState field equal bit for bit,
+    K1 and K2 (and K3) launched once a step either way (steps after the
+    last lane died change nothing, and their number depends on how far
+    the host runs ahead of the card). Returns the launches."""
     import torch
     from chroma_tpu_torch.ops import propagate as P
-    geo = quick.to(device)
-    state = device_bomb(FUSED_CHECK, 121, device)
-    out = {}
-    for mode in (False, True):
-        fused_counters()
-        ph, _, abort = P._fused_bomb(state, geo, (3, 1), FIXED_SCHEDULE,
-                                     MAX_STEPS, use_graphs=mode)
-        torch.cuda.synchronize()
-        out[mode] = (ph, fused_stats())
-        assert not abort
-    (eager, se), (graph, sg) = out[False], out[True]
-    for name in ('pos', 'dir', 'pol', 'wavelength', 't', 'weight', 'flags',
-                 'last_hit_triangle', 'evidx', 'cur_mat'):
-        assert torch.equal(getattr(eager, name), getattr(graph, name)), \
-            'replay differs from eager in ' + name
-    # a stage stops a few steps after its last lane died, as its poll
-    # sees it: the faster graph route may run more of those no-op steps
-    assert se['launches'] > 0 and se['replays'] == 0 and sg['replays'] > 0
-    check_fused(sg, FIXED_SCHEDULE)
-    log('phase 12b: fused bomb of %d photons, schedule %s: graph replays '
-        'equal eager steps bit for bit on every field; K1 launches %d '
-        'eager, %d on the graph route (%d replays + %d eager steps before '
-        'captures), blocking reads %d (%s)' % (
-            FUSED_CHECK, FIXED_SCHEDULE, se['launches'], sg['launches'],
-            sg['replays'], sg['captures'], sg['blocking_reads'], card))
-    return sg['launches'] + se['launches']
+    total = 0
+    for label, arrays, source in geometries:
+        geo = arrays.to(device)
+        state = device_bomb(FUSED_CHECK, 121, device)
+        state = state.replace(pos=state.pos + torch.tensor(
+            source, dtype=torch.float32, device=device))
+        runs = []
+        # eager, then the graph route twice: its first bomb captures each
+        # width after that width's first (eager) step, the second replays
+        # every step (a lartpc photon lives a step or two)
+        for mode in (False, True, True):
+            fused_counters()
+            ph, _, abort = P._fused_bomb(state, geo, (3, 1), FIXED_SCHEDULE,
+                                         MAX_STEPS, use_graphs=mode)
+            torch.cuda.synchronize()
+            runs.append((ph, fused_stats()))
+            assert not abort
+        (eager, se), graphed = runs[0], runs[1:]
+        for ph, _ in graphed:
+            for name in ('pos', 'dir', 'pol', 'wavelength', 't', 'weight',
+                         'flags', 'last_hit_triangle', 'evidx', 'cur_mat'):
+                assert torch.equal(getattr(eager, name),
+                                   getattr(ph, name)), \
+                    '%s: replay differs from eager in %s' % (label, name)
+        # a stage stops a few steps after its last lane died, as its poll
+        # sees it: the faster graph route may run more of those no-op steps
+        assert se['launches'] > 0 and se['replays'] == 0
+        assert graphed[1][1]['replays'] > 0
+        for _, sg in graphed:
+            check_fused(sg, FIXED_SCHEDULE)
+        for _, st in runs:
+            assert st['launches'].k3 == (st['launches']
+                                         if geo.has_wireplanes else 0)
+        log('phase 12b: %s, fused bomb of %d photons, schedule %s: graph '
+            'replays equal eager steps bit for bit on every field; K1 / K2 '
+            '/ K3 launches %s eager, %s on the graph route (replays + eager '
+            'steps before captures: %s), blocking reads %s (%s)' % (
+                label, FUSED_CHECK, FIXED_SCHEDULE, se['launches'].triple(),
+                [sg['launches'].triple() for _, sg in graphed],
+                ['%d + %d' % (sg['replays'], sg['captures'])
+                 for _, sg in graphed],
+                [sg['blocking_reads'] for _, sg in graphed], card))
+        total = total + sum(st['launches'] for _, st in runs)
+    return total
 
 
 def route_bomb(sim, route, seed, cpu_frac, label):
@@ -2268,6 +2408,224 @@ def phase_fused(quick_geo, quick, sim6, lk, cpu_frac, card):
                           many_events=many, card=card)
 
 
+STEP_WIDTHS = (1 << 11, 1 << 15, 1 << 20)   # phase 13's timed lanes
+# f32 operations of one stepping lane in K2 (the decode, bulk transport and
+# a Fresnel boundary: counted from csrc/step_kernel.cu, an estimate); K3's
+# per plane and per candidate wire (csrc/wire_walk.cu's note)
+K2_OPS_LANE = 300
+K3_OPS_PLANE, K3_OPS_WIRE = 70, 30
+STATE_BYTES = 60    # a PhotonState lane's fields K2 reads and writes
+
+
+def step_inputs(geo, state, seed, use_weights=False, scatter_first=0,
+                prune=True):
+    """What K2 is given in a step, made as propagate_step makes it on the
+    card: the prologue, K1 and (wire planes) K3."""
+    from chroma_tpu_torch.ops import photon, visit_kernel, wire_kernel
+    from chroma_tpu_torch.ops.sample import DrawPool, make_generator
+    dev = state.pos.device
+    ph, active, blocks, pruned, limit = photon.step_prologue(
+        state, geo, DrawPool(len(state), dev,
+                             generator=make_generator(dev, seed)),
+        use_weights, prune)
+    query = visit_kernel.traverse(geo.wide, ph.pos, ph.dir,
+                                  ph.last_hit_triangle, mask=active,
+                                  best_limit=limit)[:5]
+    wires = wire_kernel.walk(ph.pos, ph.dir, geo, active) \
+        if geo.has_wireplanes else None
+    return ph, active, blocks, pruned, query, wires
+
+
+def lanes_agree(label, got, ref):
+    """K2 against its plain twin, assert_same's rules for a step: integer
+    fields equal and floats to RTOL (absolute floor RTOL of the field's
+    scale) on every lane but at most 0.1% (an ulp of a division, of the
+    complex arithmetic or of a transcendental can move a roulette draw
+    across its threshold), those lanes printed. Returns (lanes that
+    differ, max |diff| on the others)."""
+    n = len(ref)
+    agree = np.ones(n, bool)
+    for name in ('flags', 'last_hit_triangle', 'cur_mat', 'evidx'):
+        agree &= getattr(got, name).cpu().numpy() \
+            == getattr(ref, name).cpu().numpy()
+    err = 0.0
+    fields = ('pos', 'dir', 'pol', 'wavelength', 't', 'weight')
+    for name in fields:
+        a = getattr(got, name).cpu().numpy().reshape(n, -1)
+        b = getattr(ref, name).cpu().numpy().reshape(n, -1)
+        atol = RTOL * max(float(np.abs(b).max()), 1.0)
+        agree &= np.isclose(a, b, rtol=RTOL, atol=atol).all(axis=1)
+    for name in fields:
+        a = getattr(got, name).cpu().numpy().reshape(n, -1)[agree]
+        b = getattr(ref, name).cpu().numpy().reshape(n, -1)[agree]
+        err = max(err, float(np.abs(a - b).max(initial=0.0)))
+    bad = np.flatnonzero(~agree)
+    for i in bad[:5]:
+        log('    %s lane %d differs: %s' % (label, i, {
+            name: (getattr(got, name)[i].tolist(),
+                   getattr(ref, name)[i].tolist())
+            for name in ('flags', 'cur_mat', 'dir', 'weight')}))
+    assert len(bad) <= 0.001 * n, '%s: %d lanes differ' % (label, len(bad))
+    return len(bad), err
+
+
+def replayed(fn):
+    """fn(), one kernel launch through its wrapper, captured once in a
+    CUDA graph: a callable that replays it, so that timing it measures the
+    kernel on the card and not the wrapper's host work (argument checks,
+    the output allocations, ctypes), which a step's graph does not
+    repeat either."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def k2_bound(active, pruned, wires):
+    """The least ms of one K2 launch: each lane's photon read and written
+    (STATE_BYTES each way), its active byte (and pruned byte), its query
+    (28 bytes: tri, dist, code, normal, instance; wires 16 more), and on
+    each stepping lane the three uniforms every stepping lane reads
+    (absorption, scattering, forcing; the path's others are not counted,
+    so the bound is a little low) -- against K2_OPS_LANE operations a
+    stepping lane. Returns (ms, 'bytes' or 'operations')."""
+    n = active.shape[0]
+    stepping = int(active.sum())
+    lane = 2 * STATE_BYTES + 1 + 28 + (pruned is not None) \
+        + (16 if wires is not None else 0)
+    nbytes = n * lane + 4 * 3 * stepping
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = stepping * K2_OPS_LANE / PEAK_F32_S * 1e3
+    return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def k3_bound(windows, n):
+    """The least ms of one K3 launch over n rays: 41 bytes a ray (ray in,
+    mask, (t, plane, vn, nn) out) against K3_OPS_PLANE operations a plane
+    and K3_OPS_WIRE a candidate wire (`windows`, per plane, this run's)."""
+    ops = K3_OPS_PLANE * len(windows) * n \
+        + K3_OPS_WIRE * sum(int(w[:n].sum()) for w in windows)
+    t_bytes = 41 * n / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_S * 1e3
+    return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def phase_step_kernels(cases, lartpc_ga, device, card):
+    """Phase 13: K2 and K3 against their plain twins on the card.
+
+    K2: on each (label, arrays, source, options, steps before) of
+    `cases`, a 2^20-photon bomb from `source` stepped that many times on
+    the card (media known, lanes on surfaces; a lartpc photon lives a
+    step or two), then one step's inputs (the prologue, K1, K3) given to
+    K2 and to step_kernel.after_query_plain: lanes_agree. K3: the 2^20 rays
+    of phase 7's bomb (300 mm below the lartpc planes) against
+    wireplane.walk_plain: planes equal, floats to RTOL. Both timed in
+    turns with their twins at STEP_WIDTHS lanes (the first lanes of the
+    same inputs), beside their bounds: the kernels replayed from a CUDA
+    graph of one launch (the wrapper's host work left out, as in a step's
+    graph) and through their wrappers. Returns the kernels' rows."""
+    import torch
+    from chroma_tpu_torch.ops import photon, step_kernel, wire_kernel
+    from chroma_tpu_torch.ops import wireplane
+    from chroma_tpu_torch.ops.sample import DrawPool, make_generator
+    k2_err, k2_bad, timed_k2 = 0.0, 0, {}
+    for label, arrays, source, opts, before in cases:
+        geo = arrays.to(device)
+        state = device_bomb(N_BOMB, 130, device)
+        state = state.replace(pos=state.pos + torch.tensor(
+            source, dtype=torch.float32, device=device))
+        for s in range(before):
+            state = photon.propagate_step(state, geo, DrawPool(
+                N_BOMB, device, generator=make_generator(device, 131, s)))
+        prune = opts.get('scatter_first', 0) == 0
+        ph, active, blocks, pruned, query, wires = step_inputs(
+            geo, state, (132,), prune=prune, **opts)
+        args = (ph, geo, blocks, active, pruned, query, wires)
+        got = step_kernel.after_query(*args, **opts)
+        ref = step_kernel.after_query_plain(*args, **opts)
+        torch.cuda.synchronize()
+        bad, err = lanes_agree(label, got, ref)
+        k2_bad += bad
+        k2_err = max(k2_err, err)
+        log('phase 13: K2 against its plain twin, %s (models %s, %s), %d '
+            'lanes (%d stepping): %d lanes differ (at most 0.1%%), max '
+            '|diff| on the others %.3g' % (
+                label, geo.surfaces.models_present, opts or 'plain',
+                N_BOMB, int(active.sum()), bad, err))
+        if opts or label in timed_k2:
+            continue
+        rows = {}
+        for w in STEP_WIDTHS:
+            def cut(t, w=w):
+                return None if t is None else t[:w].contiguous()
+            args = (ph.map(cut), geo, blocks[:, :w].contiguous(),
+                    cut(active), cut(pruned), tuple(map(cut, query)),
+                    None if wires is None else tuple(map(cut, wires)))
+            med, _ = time_turns({
+                'K2': replayed(lambda a=args: step_kernel.launch(*a)),
+                'K2 eager': lambda a=args: step_kernel.launch(*a),
+                'plain': lambda a=args: step_kernel.after_query_plain(*a)})
+            bound, by = k2_bound(args[3], pruned, wires)
+            rows[w] = dict(ms=med['K2'], eager_ms=med['K2 eager'],
+                           plain_ms=med['plain'], bound_ms=bound,
+                           bound_by=by)
+            log('  K2 %s, %7d lanes: %.4f ms (graph-replayed; %.4f ms '
+                'through the wrapper), plain twin %.3f ms, bound %.5f ms '
+                '(%s), %.2f%% of it (%s)' % (
+                    label, w, med['K2'], med['K2 eager'], med['plain'],
+                    bound, by, 100.0 * bound / med['K2'], card))
+        timed_k2[label] = rows
+
+    geo = lartpc_ga.to(device)
+    np.random.seed(11)
+    from chroma_tpu_torch.generator import photon_bomb
+    bomb = photon_bomb(N_BOMB, 400.0, (0.0, 0.0, -300.0))
+    pos = torch.from_numpy(bomb.pos.astype(np.float32)).to(device)
+    d = torch.from_numpy(bomb.dir.astype(np.float32)).to(device)
+    active = torch.ones(N_BOMB, dtype=torch.bool, device=device)
+    table = wire_kernel.planes(geo)
+    got = wire_kernel.launch(pos, d, table, active)
+    ref = wireplane.walk_plain(pos, d, geo, active)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], ref[1]), 'K3: planes differ'
+    hit = (ref[1] >= 0).cpu().numpy()
+    k3_err = 0.0
+    for a, b in zip(got[::2] + got[3:], ref[::2] + ref[3:]):
+        a, b = a.cpu().numpy()[hit], b.cpu().numpy()[hit]
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=1e-6)
+        k3_err = max(k3_err, float(np.abs(a - b).max(initial=0.0)))
+    windows = wireplane.candidate_windows(pos, d, geo, active)
+    log('phase 13: K3 against its plain twin, %d lartpc rays: %d hit a wire, '
+        'planes equal, max |diff| of t, vn, nn %.3g; candidate wires a '
+        'plane %s' % (N_BOMB, int(hit.sum()), k3_err,
+                      [int(w.sum()) for w in windows]))
+    k3_rows = {}
+    for w in STEP_WIDTHS:
+        args = (pos[:w].contiguous(), d[:w].contiguous())
+        # the plain twin's lockstep loop takes over a second at any width
+        med, _ = time_turns({
+            'K3': replayed(lambda a=args: wire_kernel.launch(
+                *a, table, active[:w])),
+            'K3 eager': lambda a=args: wire_kernel.launch(*a, table,
+                                                          active[:w]),
+            'plain': lambda a=args: wireplane.walk_plain(*a, geo,
+                                                         active[:w])},
+            rounds=2)
+        bound, by = k3_bound(windows, w)
+        k3_rows[w] = dict(ms=med['K3'], eager_ms=med['K3 eager'],
+                          plain_ms=med['plain'], bound_ms=bound, bound_by=by)
+        log('  K3, %7d rays: %.4f ms (graph-replayed; %.4f ms through the '
+            'wrapper), plain twin %.3f ms, bound %.5f ms (%s), %.2f%% of it '
+            '(%s)' % (w, med['K3'], med['K3 eager'], med['plain'], bound,
+                      by, 100.0 * bound / med['K3'], card))
+    return dict(k2=dict(max_abs_err=k2_err, lanes_differing=k2_bad,
+                        times=timed_k2),
+                k3=dict(max_abs_err=k3_err, times=k3_rows))
+
+
 def main(argv, work):
     import torch
     if not torch.cuda.is_available():
@@ -2297,18 +2655,24 @@ def main(argv, work):
 
     # --- 1. build, all at once
     from chroma_tpu_torch import native
+    from chroma_tpu_torch.ops import step_kernel, wire_kernel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        jobs = [pool.submit(visit_kernel.build),
+    with ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(visit_kernel.build), pool.submit(step_kernel.build),
+                pool.submit(wire_kernel.build),
                 pool.submit(native.available)]
-        _, kit = [job.result() for job in jobs]
-    log('phase 1: built %s and %s (%s) in %.1f s' % (
+        kit = [job.result() for job in jobs][-1]
+    log('phase 1: built %s, %s, %s and %s (%s) in %.1f s' % (
         os.path.relpath(visit_kernel.SOURCE),
+        os.path.relpath(step_kernel.SOURCE),
+        os.path.relpath(wire_kernel.SOURCE),
         os.path.relpath(native.SOURCE),
         'loaded' if kit else 'unavailable: numpy paths',
         time.perf_counter() - t0))
     assert kit, 'the host geometry kit did not build'
-    log('  ptxas: %s' % ptxas_summary(visit_kernel.build_log))
+    for name, mod in (('K1', visit_kernel), ('K2', step_kernel),
+                      ('K3', wire_kernel)):
+        log('  ptxas %s: %s' % (name, ptxas_summary(mod.build_log)))
 
     # --- 2. kernel vs plain on the card
     log('phase 2: visit kernel vs plain traversal on the card')
@@ -2377,7 +2741,7 @@ def main(argv, work):
 
     # --- 6.-8. the full optics, wire planes and the likelihood path
     geo6, ga6, sim6, launches6, _ = phase_quick_optics(device, card)
-    launches7, lartpc = phase_lartpc(device, card)
+    launches7, lartpc, lartpc_ga = phase_lartpc(device, card)
     launches8, lk = phase_likelihood(geo6, ga6, sim6, card)
 
     # --- 9. the user entry points
@@ -2407,9 +2771,24 @@ def main(argv, work):
 
     # --- 12. the fused bomb: cost model, replay vs eager, routes in turns
     cost = phase_cost_model(quick, device, card)
-    launches12b = phase_replay_vs_eager(quick, device, card)
+    launches12b = phase_replay_vs_eager(
+        [('quick', quick, (0.0, 0.0, 0.0)),
+         ('lartpc-wires', lartpc_ga, (0.0, 0.0, -300.0))], device, card)
     launches12, fused = phase_fused(quick_geo, quick, sim6, lk,
                                     len(cev.flat_hits) / N_CHECK, card)
+
+    # --- 13. K2 and K3 against their plain twins, timed
+    twins = phase_step_kernels(
+        [('quick', quick, (0.0, 0.0, 0.0), {}, 2),
+         ('quick-optics', ga6, (0.0, 0.0, 0.0), {}, 2),
+         ('quick-optics weights', ga6, (0.0, 0.0, 0.0),
+          {'use_weights': True}, 2),
+         ('quick-optics scatter_first 1', ga6, (0.0, 0.0, 0.0),
+          {'scatter_first': 1}, 2),
+         ('quick-optics scatter_first -1', ga6, (0.0, 0.0, 0.0),
+          {'scatter_first': -1}, 2),
+         ('lartpc-wires', lartpc_ga, (0.0, 0.0, -300.0), {}, 0)],
+        lartpc_ga, device, card)
 
     if profile:
         profile_run('quick (fused)', lambda: run_main_path(sim, N_BOMB, 7),
@@ -2436,6 +2815,10 @@ def main(argv, work):
                  '10f gdml': launches10f, '11 sharded': launches11,
                  '12b replay vs eager': launches12b, **launches12}
     log('visit-kernel launches per main path: %s' % json.dumps(per_phase))
+    log('K1, K2, K3 launches per main path: %s' % json.dumps(
+        {k: v.triple() for k, v in per_phase.items()}))
+    total = sum(per_phase.values())
+    assert total.k2 > 0 and total.k3 > 0
     assert visit_kernel.thread_launches == thread_launches, \
         'a main path launched the first design'
 
@@ -2477,16 +2860,39 @@ def main(argv, work):
         'bound_ms_camera': camera_k1['bound_ms'],
         'bound_by_camera': camera_k1['bound_by'],
         'bound_share_camera': camera_k1['bound_ms'] / camera_k1['ms'],
-    }]}))
+    }, kernel_row('step_after_query', 'step_kernel.cu',
+                  'chroma_tpu/ops/photon.py:1086', total.k2,
+                  {k: v.k2 for k, v in per_phase.items()}, twins['k2'],
+                  twins['k2']['times']['quick']),
+        kernel_row('wire_walk', 'wire_walk.cu',
+                   'chroma_tpu/ops/wireplane.py:151', total.k3,
+                   {k: v.k3 for k, v in per_phase.items() if v.k3},
+                   twins['k3'], twins['k3']['times'])]}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
 
 
+def kernel_row(name, source, replaces, launches, per_path, twin, times):
+    """A kernel's entry of the `kernels` line: launches on the main paths,
+    its time, its plain twin's and its bound at 2^20 lanes (phase 13), and
+    the other widths timed."""
+    big = times[N_BOMB]
+    return {'name': name, 'route': 'cuda',
+            'source': 'chroma_tpu_torch/csrc/' + source,
+            'replaces': replaces, 'launches': launches,
+            'launches_per_path': per_path,
+            'max_abs_err': twin['max_abs_err'], 'lanes': N_BOMB,
+            'ms': big['ms'], 'plain_ms': big['plain_ms'],
+            'bound_ms': big['bound_ms'], 'bound_by': big['bound_by'],
+            'bound_share': big['bound_ms'] / big['ms'], 'library_ms': None,
+            'by_lanes': {str(w): t for w, t in times.items()}}
+
+
 def profile_run(label, fn, card, path):
     """Device time by kernel over one run of fn() (torch.profiler); the
-    full table is appended to `path`. Logs wall, device busy time, the
-    visit kernel's share and the device's idle share."""
+    full table is appended to `path`. Logs wall, device busy time, K1's,
+    K2's and K3's shares and the device's idle share."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     torch.cuda.synchronize()
@@ -2506,15 +2912,20 @@ def profile_run(label, fn, card, path):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in events) / 1e6
-    visit = sum(e.self_device_time_total for e in events
-                if 'visit_warp_kernel' in e.key) / 1e6
+    shares = {name: sum(e.self_device_time_total for e in events
+                        if key in e.key) / 1e6
+              for name, key in (('K1', 'visit_warp_kernel'),
+                                ('K2', 'step_kernel'),
+                                ('K3', 'wire_walk_kernel'))}
     cpu_ops = sum(e.count for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CPU
                   and e.key.startswith('aten::'))
     log('profile %s: wall %.3f s profiled, device busy %.3f s (idle %.1f%%)'
-        ', visit kernel %.3f s (%.1f%% of device time), %d aten ops; top '
-        'rows:' % (label, wall, total, 100.0 * (1 - total / wall), visit,
-                   100.0 * visit / max(total, 1e-9), cpu_ops))
+        ', %s, %d aten ops; top rows:' % (
+            label, wall, total, 100.0 * (1 - total / wall), ', '.join(
+                '%s %.3f s (%.1f%% of device time)' % (
+                    name, t, 100.0 * t / max(total, 1e-9))
+                for name, t in shares.items()), cpu_ops))
     for line in table.splitlines()[:12]:
         log('  ' + line)
 

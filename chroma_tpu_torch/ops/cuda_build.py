@@ -1,0 +1,84 @@
+"""Build and load the port's hand-written CUDA kernels (csrc/*.cu), and
+keep per-geometry device tables for them.
+
+Each kernel source is compiled with nvcc at first use into <repo>/build/
+as a shared library with a plain C interface, loaded by ctypes and
+launched on torch's current stream (so a CUDA graph capture records it).
+The flags are the same for every kernel: sm_90a, -O3, and --fmad=false,
+because the plain PyTorch versions round every `a * b + c` twice except
+where they call linalg.fma, and the kernels write fmaf exactly there. No
+--use_fast_math: torch's CUDA logf/expf/sinf/sqrtf are the precise
+libdevice functions, and so are the kernels'. A failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import weakref
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, 'csrc')
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build')
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '--fmad=false', '-Xptxas', '-v', '-shared',
+              '-Xcompiler', '-fPIC')
+
+
+def nvcc():
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    return os.path.join(home, 'bin', 'nvcc')
+
+
+def build(source):
+    """Compile `source` (a path under csrc/), once per source content and
+    flags, and load it. Returns (ctypes library, nvcc's output: ptxas's
+    registers and spills, '' when the library was built before); raises
+    RuntimeError if nvcc fails. Concurrent builders each write their own
+    temporary file and rename it into place."""
+    with open(source, 'rb') as fh:
+        digest = hashlib.sha256(fh.read() + ' '.join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:12]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(source))[0]
+    lib_path = os.path.join(BUILD_DIR, 'lib%s_%s.so' % (stem, digest))
+    log = ''
+    if not os.path.exists(lib_path):
+        tmp = '%s.%d.tmp' % (lib_path, os.getpid())
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, '-o', tmp, source],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError('nvcc failed on %s (%d):\n%s'
+                               % (source, proc.returncode, log))
+        os.replace(tmp, lib_path)
+    return ctypes.CDLL(lib_path), log
+
+
+_TABLES = {}    # (id(geometry), name) -> (weakref to it, tables)
+
+
+def geometry_tables(geometry, name, make):
+    """`make(geometry)`, computed once per geometry object and kept while
+    it lives: the device tables a kernel reads. Built outside any graph
+    capture (the step's first, eager, run makes them), so a replay reads
+    memory that no graph owns."""
+    key = (id(geometry), name)
+    ent = _TABLES.get(key)
+    if ent is not None and ent[0]() is geometry:
+        return ent[1]
+    tables = make(geometry)
+    _TABLES[key] = (weakref.ref(geometry), tables)
+    weakref.finalize(geometry, _TABLES.pop, key, None)
+    return tables
+
+
+def check_launch(err, what):
+    "Raise on a non-zero CUDA error code returned by a C entry point."
+    if err != 0:
+        raise RuntimeError('%s launch failed: CUDA error %d' % (what, err))

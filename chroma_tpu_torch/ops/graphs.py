@@ -2,13 +2,13 @@
 on the fused-bomb path of chroma_tpu.ops.propagate (no module twin in the
 JAX package).
 
-An eager step on the card issues about 1,950 small torch ops (6,200 with
-the full optics; torch.profiler on an NVIDIA H100 80GB HBM3 at 700 W,
-PERF.md section 5), each dispatched from the host, so the card idles
-while the host dispatches them. A `StepGraph` captures `propagate_step` once
-for a static lane count, K1's launch included (it is a ctypes launch on
+A step on the card is the prologue's torch ops (about 30) and a launch
+each of K1 (the geometry query), K3 (the wire walk, on wire-plane
+geometries) and K2 (everything after the query), each dispatched from
+the host. A `StepGraph` captures `propagate_step` once for a static lane
+count, the kernels' launches included (they are ctypes launches on
 torch's current stream, which is the capture stream), and then replays
-the capture once per step: one host call instead of thousands.
+the capture once per step: one host call a step.
 
 What a replay must not bake in:
   * the random draws. Each graph owns a torch.Generator registered with
@@ -20,14 +20,15 @@ What a replay must not bake in:
   * the state. The capture reads and writes the graph's own static
     buffers (`state`): `load` copies lanes in, a replay advances them by
     one step in place, `output` clones them out;
-  * host reads. Nothing in the captured step reads a device value on the
-    host; a step that did (a wire-plane geometry's window count) would
-    raise during capture, and the driver gives such geometries eager
-    steps instead.
+  * host reads and table builds. Nothing in the captured step reads a
+    device value on the host (a step that did would raise during
+    capture), and K2's and K3's geometry tables are packed before the
+    capture begins.
 
-K1's launch counter moves once while the step is captured, for a launch
-that is only recorded; the capture takes it back, and every replay adds
-the number of K1 launches the graph holds (`k1`).
+The kernels' launch counters (visit_kernel, step_kernel, wire_kernel
+`.launches`) move while the step is captured, for launches that are only
+recorded; the capture takes them back, and every replay adds the
+launches the graph holds (`k1`, `k2`, `k3`).
 
 Graphs are cached per geometry by (lane count, use_weights, scatter_first
 of the step, prune), as XLA caches compiled programs by static
@@ -43,9 +44,9 @@ keeps live data in the pool and any order of replays is safe.
 
 The first step at a new width runs eagerly (ops.propagate) and the
 graph is captured right after it, from the lanes it left: that step
-loads every kernel the capture records. So a bomb launches K1 once a
-step whichever way the step runs: replays times `k1` plus one eager step
-a capture.
+loads every kernel the capture records. So a bomb launches each kernel
+once a step whichever way the step runs: replays times its count in the
+graph plus one eager step a capture.
 
 `captures`, `capture_s` (host seconds spent capturing) and `replays`
 count this module's work, like visit_kernel.launches (reset freely by
@@ -61,13 +62,16 @@ from collections import OrderedDict
 
 import torch
 
-from chroma_tpu_torch.ops import visit_kernel
+from chroma_tpu_torch.ops import step_kernel, visit_kernel, wire_kernel
 from chroma_tpu_torch.ops.photon import propagate_step
 from chroma_tpu_torch.ops.sample import DrawPool, mix_seed
 
 captures = 0
 capture_s = 0.0
 replays = 0
+
+# the kernels whose launches a graph records: (attribute, module)
+KERNELS = (('k1', visit_kernel), ('k2', step_kernel), ('k3', wire_kernel))
 
 # graphs kept per geometry: well above the widths of one bomb (at most
 # CHROMA_SCHED_MAX_STAGES + 1 stages, two mop-up buckets, and step 0's
@@ -102,6 +106,13 @@ class StepGraph:
         global captures, capture_s
         t0 = time.perf_counter()
         dev = photons.pos.device
+        # the kernels and their geometry tables, before the capture
+        visit_kernel.build()
+        step_kernel.build()
+        step_kernel.tables(geometry)
+        if geometry.has_wireplanes:
+            wire_kernel.build()
+            wire_kernel.planes(geometry)
         current = torch.cuda.current_stream(dev)
         self.state = photons.map(torch.clone)
         self.alive = torch.zeros((), dtype=torch.int64, device=dev)
@@ -110,7 +121,7 @@ class StepGraph:
         self.graph.register_generator_state(self.generator)
         side = _STREAMS.setdefault(dev.index, torch.cuda.Stream(dev))
         side.wait_stream(current)
-        before = visit_kernel.launches
+        before = {name: mod.launches for name, mod in KERNELS}
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -130,19 +141,27 @@ class StepGraph:
                     del out, pool
                 except BaseException:
                     # end the broken capture so that the stream is usable
-                    # again; the original error is the one raised
+                    # again; the original error is the one raised. The
+                    # caching allocator keeps the pool of a capture that
+                    # failed marked as recording, and a capture into it
+                    # would fail: later captures take a new pool and side
+                    # stream
                     try:
                         self.graph.capture_end()
                     except RuntimeError:
                         pass
+                    for held in (_POOLS, _STREAMS, _ANCHORS):
+                        held.pop(dev.index, None)
                     raise
                 self.graph.capture_end()
             current.wait_stream(side)
             _ANCHORS.setdefault(dev.index, self.graph)
             # the launches the capture recorded run only when replayed
-            self.k1 = visit_kernel.launches - before
+            for name, mod in KERNELS:
+                setattr(self, name, mod.launches - before[name])
         finally:
-            visit_kernel.launches = before
+            for name, mod in KERNELS:
+                mod.launches = before[name]
             if collecting:
                 gc.enable()
         self.n_replays = 0
@@ -161,7 +180,8 @@ class StepGraph:
         global replays
         self.generator.manual_seed(mix_seed(*seed))
         self.graph.replay()
-        visit_kernel.launches += self.k1
+        for name, mod in KERNELS:
+            mod.launches += getattr(self, name)
         replays += 1
         self.n_replays += 1
 

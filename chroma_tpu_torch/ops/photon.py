@@ -1,12 +1,16 @@
 """Photon physics step for the torch port (counterpart of
 chroma_tpu.ops.photon), vectorised over the photon batch.
 
-Every phase of a step -- geometry query (mesh and analytic wire planes),
-bulk transport with reemission, the five surface models, Fresnel boundary
--- is computed for the whole batch and merged with masks, in the JAX
-package's order, drawing uniforms from the step's DrawPool in the JAX trace
-order: every surface model present in the geometry draws for every lane,
-whether the lane uses it or not (default, complex, WLS, dichroic, angular).
+On CUDA tensors a step is the prologue's torch ops and three kernels: K1
+(the geometry query), K3 (the wire walk, on wire-plane geometries) and K2
+(everything after the query, ops.step_kernel). The plain functions here
+are K2's twin (step_kernel.after_query_plain) and the CPU step: every
+phase -- boundary context (mesh and analytic wire planes), bulk transport
+with reemission, the five surface models, Fresnel boundary -- is computed
+for the whole batch and merged with masks, in the JAX package's order,
+drawing uniforms from the step's DrawPool in the JAX trace order: every
+surface model present in the geometry draws for every lane, whether the
+lane uses it or not (default, complex, WLS, dichroic, angular).
 Weighted transport (use_weights) and scatter_first biasing follow the JAX
 step, and so do its two switches CHROMA_FORCE_SCATTER_AT_PASS and
 CHROMA_PRUNE_TRAVERSAL, read once at import.
@@ -19,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import types
 
 import torch
 
@@ -30,9 +35,9 @@ from chroma_tpu_torch.event import (NO_HIT, BULK_ABSORB, SURFACE_DETECT,
 from chroma_tpu_torch.geometry import (SURFACE_DEFAULT, SURFACE_COMPLEX,
                                  SURFACE_WLS, SURFACE_DICHROIC,
                                  SURFACE_ANGULAR)
-from chroma_tpu_torch.ops import visit_kernel
+from chroma_tpu_torch.ops import step_kernel, visit_kernel, wire_kernel
 from chroma_tpu_torch.ops.linalg import dot, cross, norm, normalize, rotate
-from chroma_tpu_torch.ops.sample import sample_cdf_uniform_rows
+from chroma_tpu_torch.ops.sample import sample_cdf_uniform_rows, uniform
 from chroma_tpu_torch.ops.types import (MAT_REFRACTIVE_INDEX,
                                         MAT_ABSORPTION_LENGTH,
                                         MAT_SCATTERING_LENGTH, SURF_DETECT,
@@ -40,7 +45,6 @@ from chroma_tpu_torch.ops.types import (MAT_REFRACTIVE_INDEX,
                                         SURF_REFLECT_DIFFUSE,
                                         SURF_REFLECT_SPECULAR, SURF_ETA,
                                         SURF_K, SURF_REEMISSION_CDF)
-from chroma_tpu_torch.ops.wireplane import intersect_wireplanes
 
 SPEED_OF_LIGHT = 299.792458  # mm/ns
 PI = math.pi
@@ -189,29 +193,38 @@ def material_comp_property(materials, table, mat_idx, comp, wavelength):
                         m.wavelength0, m.wavelength_step)
 
 
+def medium_props(mrows, mat):
+    """(rindex, absorption length, scattering length) of material `mat`
+    (clamped at 0; 0 outside the table) from every material's properties
+    at each photon's wavelength."""
+    safe = torch.clamp(mat, min=0)
+    return tuple(select_rows(mrows[:, :, p], safe)
+                 for p in (MAT_REFRACTIVE_INDEX, MAT_ABSORPTION_LENGTH,
+                           MAT_SCATTERING_LENGTH))
+
+
 # ---------------------------------------------------------------------------
-# fill_state: geometry query + boundary material resolution
+# decode_state: boundary material resolution from the geometry query
 # ---------------------------------------------------------------------------
 
-def fill_state(photons, geometry, active, best_limit, pruned, pre_props,
-               mrows):
-    """Find each photon's next boundary and resolve the optical context
-    (reference: photon.h:87-397), instanced-table branch plus the analytic
-    wire planes. Lanes not in `active` are skipped. `best_limit`, `pruned`
-    and `pre_props` (the current medium's (rindex, abslen, scatlen))
-    implement the interaction-length pruning of propagate_step, and are
-    None without it: a pruned miss means "no boundary before the bulk
-    interaction", not NO_HIT. `mrows` is every material's properties at
-    each photon's wavelength. Returns (photons', StepState)."""
-    tri, dist, code, nvec, hit_iid, _ = visit_kernel.traverse(
-        geometry.wide, photons.pos, photons.dir, photons.last_hit_triangle,
-        mask=active, best_limit=best_limit)
+def decode_state(photons, geometry, active, pruned, pre_props, mrows, query,
+                 wp):
+    """Resolve each photon's optical context from its geometry query
+    (reference: photon.h:87-397, the decode of fill_state), instanced-table
+    branch plus the analytic wire planes. `query` is the traversal's (tri,
+    dist, code, nvec, iid) and `wp` the WirePlaneHit (None without wire
+    planes). Lanes not in `active` are skipped. `pruned` and `pre_props`
+    (the current medium's (rindex, abslen, scatlen)) implement the
+    interaction-length pruning of propagate_step, and are None without it:
+    a pruned miss means "no boundary before the bulk interaction", not
+    NO_HIT. `mrows` is every material's properties at each photon's
+    wavelength. Returns (photons', StepState)."""
+    tri, dist, code, nvec, hit_iid = query
     hit = tri >= 0
     if pruned is None:
         pruned = torch.zeros_like(hit)
 
-    if geometry.has_wireplanes:
-        wp = intersect_wireplanes(photons.pos, photons.dir, geometry, active)
+    if wp is not None:
         best = torch.where(hit, dist, 1e30)
         # surface-less wire planes are ignored, like the reference's
         # analytic_surface >= 0 gate (reference: photon.h:273-277)
@@ -219,7 +232,6 @@ def fill_state(photons, geometry, active, best_limit, pruned, pre_props,
                                                      < best)
         any_hit = hit | use_analytic
     else:
-        wp = None
         use_analytic = None
         any_hit = hit
 
@@ -975,19 +987,20 @@ def propagate_at_surface(photons, state, pool, geometry, use_weights=False):
 # one full step
 # ---------------------------------------------------------------------------
 
-def propagate_step(photons, geometry, pool, use_weights=False,
-                   scatter_first=0, prune=True):
-    """One propagation step for the whole batch (reference:
-    chroma/cuda/propagate.cu:300-338), drawing from the DrawPool `pool`.
-    Termination is recorded in the history flags.
+def step_prologue(photons, geometry, pool, use_weights=False, prune=True):
+    """The step before the geometry query (reference:
+    chroma/cuda/propagate.cu:300-338): the NaN guard, all of the step's
+    uniform blocks (as many as the step draws, made as DrawPool.draw would
+    make them), and, with pruning, the traversal's distance limit.
 
-    The absorption and scattering uniforms are drawn before the geometry
-    query. With `prune` (and no weights, and CHROMA_PRUNE_TRAVERSAL on),
-    for lanes whose medium is tracked (cur_mat >= 0) the sampled
-    interaction distance bounds the BVH traversal; the biasing modes need
-    the true boundary distance, so propagate() turns pruning off for
-    scatter_first, as chroma_tpu.ops.propagate does."""
-    mats = geometry.materials
+    With `prune` (and no weights, and CHROMA_PRUNE_TRAVERSAL on), for
+    lanes whose medium is tracked (cur_mat >= 0) the absorption and
+    scattering distances sampled from the step's first two uniforms bound
+    the BVH traversal; the biasing modes need the true boundary distance,
+    so propagate() turns pruning off for scatter_first, as
+    chroma_tpu.ops.propagate does. Returns (photons with the NaN-abort
+    flags, active lanes, the (B * 8, N) uniform blocks, pruned lanes or
+    None, the limit or None)."""
     alive = photons.alive
 
     # NaN guard (reference: propagate.cu:307-310)
@@ -997,31 +1010,29 @@ def propagate_step(photons, geometry, pool, use_weights=False,
     photons = photons.replace(flags=flags)
     active = alive & ~nan_abort
 
-    u_abs = pool.draw()
-    u_scat = pool.draw()
-
-    prune = prune and not use_weights and PRUNE_TRAVERSAL
+    blocks = pool.stacked(step_kernel.n_draws(geometry))
+    if not (prune and not use_weights and PRUNE_TRAVERSAL):
+        return photons, active, blocks, None, None
+    mats = geometry.materials
     mrows = wavelength_lerp_rows(mats.props_wl, photons.wavelength,
                                  mats.wavelength0, mats.wavelength_step)
-    if prune:
-        known = active & (photons.cur_mat >= 0)
-        safe_mat = torch.clamp(photons.cur_mat, min=0)
-        pre_props = tuple(
-            select_rows(mrows[:, :, p], safe_mat)
-            for p in (MAT_REFRACTIVE_INDEX, MAT_ABSORPTION_LENGTH,
-                      MAT_SCATTERING_LENGTH))
-        pre_abs = -pre_props[1] * torch.log(u_abs)
-        pre_scat = -pre_props[2] * torch.log(u_scat)
-        interaction = torch.minimum(pre_abs, pre_scat)
-        # near-vacuum media never interact in practice; leave those lanes
-        # unpruned so a genuine escape still reads as NO_HIT
-        pruned = known & (interaction < 1e20)
-        limit = torch.where(pruned, interaction * (1.0 + 1e-4), torch.inf)
-    else:
-        pre_props = pruned = limit = None
+    known = active & (photons.cur_mat >= 0)
+    pre_props = medium_props(mrows, photons.cur_mat)
+    pre_abs = -pre_props[1] * torch.log(uniform(blocks[0]))
+    pre_scat = -pre_props[2] * torch.log(uniform(blocks[1]))
+    interaction = torch.minimum(pre_abs, pre_scat)
+    # near-vacuum media never interact in practice; leave those lanes
+    # unpruned so a genuine escape still reads as NO_HIT
+    pruned = known & (interaction < 1e20)
+    limit = torch.where(pruned, interaction * (1.0 + 1e-4), torch.inf)
+    return photons, active, blocks, pruned, limit
 
-    photons, state = fill_state(photons, geometry, active, limit, pruned,
-                                pre_props, mrows)
+
+def finish_step(photons, state, pool, geometry, active, u_abs, u_scat,
+                use_weights=False, scatter_first=0):
+    """The step after the boundary context: bulk transport, the surface
+    models, Fresnel and medium tracking, drawing from `pool`."""
+    mats = geometry.materials
     active = active & state.hit
 
     moved, cmd_bulk = propagate_to_boundary(photons, state, pool, u_abs,
@@ -1047,3 +1058,36 @@ def propagate_step(photons, geometry, pool, use_weights=False,
     mat_now = torch.where(crossed, state.material2, state.material1)
     cur_mat = torch.where(active, mat_now, photons.cur_mat)
     return photons.replace(cur_mat=cur_mat)
+
+
+def propagate_step(photons, geometry, pool, use_weights=False,
+                   scatter_first=0, prune=True):
+    """One propagation step for the whole batch (reference:
+    chroma/cuda/propagate.cu:300-338), drawing from the DrawPool `pool`.
+    Termination is recorded in the history flags.
+
+    The step is the prologue (step_prologue, torch ops), the geometry
+    query (K1, ops.visit_kernel.traverse), the wire walk on a wire-plane
+    geometry (K3, ops.wire_kernel.walk) and everything after the query
+    (K2, ops.step_kernel.after_query). On CUDA tensors those are one
+    kernel launch each and nothing is read on the host; on the CPU each
+    runs its plain PyTorch twin."""
+    photons, active, blocks, pruned, limit = step_prologue(
+        photons, geometry, pool, use_weights, prune)
+    query = visit_kernel.traverse(
+        geometry.wide, photons.pos, photons.dir, photons.last_hit_triangle,
+        mask=active, best_limit=limit)[:5]
+    wires = wire_kernel.walk(photons.pos, photons.dir, geometry, active) \
+        if geometry.has_wireplanes else None
+    return step_kernel.after_query(photons, geometry, blocks, active, pruned,
+                                   query, wires, use_weights, scatter_first,
+                                   physics=_PHYSICS)
+
+
+# what K2 and its plain twin take from this module: the plain functions
+# and the switch (a copy of the module imported with other CHROMA_*
+# switches passes its own)
+_PHYSICS = types.SimpleNamespace(
+    wavelength_lerp_rows=wavelength_lerp_rows, medium_props=medium_props,
+    decode_state=decode_state, finish_step=finish_step,
+    FORCE_SCATTER_AT_PASS=FORCE_SCATTER_AT_PASS)

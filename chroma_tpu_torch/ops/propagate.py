@@ -17,9 +17,9 @@ Two routes, chosen as the JAX driver chooses them, on every device:
     kept in the session and in the perf cache (chroma_tpu_torch.perfcache)
     under the geometry's content fingerprint. CHROMA_FUSED_SCHEDULE
     overrides it ('none': no compaction).
-    On a CUDA geometry without wire planes each stage's step runs as a
-    CUDA graph captured at the stage's static width (ops.graphs), K1
-    inside it; on the CPU, and for wire planes, the same driver runs the
+    On a CUDA device each stage's step runs as a CUDA graph captured at
+    the stage's static width (ops.graphs), its kernels (K1, K2, and K3 on
+    a wire-plane geometry) inside it; on the CPU the same driver runs the
     same step eagerly. No step reads a device value on the host: each
     step's alive count is copied to pinned memory behind an event, the
     driver polls the events and stops a stage once a finished step left
@@ -278,15 +278,16 @@ def _round_lanes(w):
 # the card the port runs on: a step of width w costs w + SCHED_FLOOR_LANES
 # and a compaction boundary at width w costs SCHED_BOUNDARY_FRAC * w +
 # SCHED_BOUNDARY_LANES. Measured by chip_smoke.py phase 12a on an NVIDIA
-# H100 80GB HBM3 at 700 W: graph-replayed quick-detector steps from 2^11
-# to 2^20 lanes fit t = 5.60e-6 ms * w + 1.10 ms (0.96 ms at 2^11, 7.04 ms
-# at 2^20), so SCHED_FLOOR_LANES = 1.10 / 5.60e-6; a boundary (its
-# blocking read, front-pack and lane moves) fits 2.0e-7 ms * w + 0.98 ms,
-# so SCHED_BOUNDARY_FRAC = 2.0e-7 / 5.60e-6 and SCHED_BOUNDARY_LANES =
-# 0.98 / 5.60e-6 (PERF.md section 6).
-SCHED_FLOOR_LANES = 197000
-SCHED_BOUNDARY_FRAC = 0.036
-SCHED_BOUNDARY_LANES = 174000
+# H100 80GB HBM3 at 700 W with the step of the prologue and K1-K3 (two
+# runs, their mean): graph-replayed quick-detector steps from 2^11 to 2^20
+# lanes fit t = 1.29e-6 ms * w + 0.199 ms (0.185 ms at 2^11, 1.56 ms at
+# 2^20), so SCHED_FLOOR_LANES = 0.199 / 1.29e-6; a boundary (its blocking
+# read, front-pack and lane moves, timed on the host) fits 4.8e-8 and
+# 7.4e-7 ms * w + 1.30 and 1.72 ms, so SCHED_BOUNDARY_FRAC = 3.9e-7 /
+# 1.29e-6 and SCHED_BOUNDARY_LANES = 1.51 / 1.29e-6 (PERF.md section 6).
+SCHED_FLOOR_LANES = 154000
+SCHED_BOUNDARY_FRAC = 0.31
+SCHED_BOUNDARY_LANES = 1168000
 SCHED_MAX_STAGES = int(os.environ.get('CHROMA_SCHED_MAX_STAGES', '12'))
 
 
@@ -498,6 +499,13 @@ def _steps(photons, geometry, key, start, nsteps, use_weights,
     return photons, poll
 
 
+def graph_route(photons):
+    """Whether the fused bomb replays its steps from CUDA graphs: on a CUDA
+    device, for every geometry (no step reads the host, wire planes'
+    included)."""
+    return photons.pos.is_cuda
+
+
 def _fused_bomb(photons, geometry, seed, schedule, max_steps,
                 use_weights=False, scatter_first=0, prune=True,
                 report=False, use_graphs=None):
@@ -507,10 +515,9 @@ def _fused_bomb(photons, geometry, seed, schedule, max_steps,
     else None, the NaN-abort flag).
 
     use_graphs: run each stage's step as a CUDA graph (ops.graphs); None
-    means on a CUDA geometry without wire planes (whose step reads its
-    window count on the host), False runs every step eagerly."""
+    means on a CUDA device (graph_route), False runs every step eagerly."""
     if use_graphs is None:
-        use_graphs = photons.pos.is_cuda and not geometry.has_wireplanes
+        use_graphs = graph_route(photons)
     curves = []
     opts = (use_weights, scatter_first, prune, use_graphs)
 
@@ -589,6 +596,12 @@ def _fused_bomb(photons, geometry, seed, schedule, max_steps,
 # per-(geometry, batch, max_steps) tuned schedules
 _SCHED_CACHE = {}
 
+# the perf-cache key of a tuned schedule, by (batch, max_steps). Its
+# version names the step cost the tuner's constants were measured on (k2:
+# a step of the prologue and K1-K3); entries tuned on another cost model
+# (the step of some 2,000 torch ops, key 'sched:') are never read.
+SCHED_KEY = 'sched/k2:%d:%d'
+
 # per-(geometry, batch) raw probe survival curves (diagnostics)
 _PROBE_COUNTS = {}
 
@@ -607,7 +620,7 @@ def _sched_lookup(geometry, n, max_steps):
     if ck in _SCHED_CACHE:
         return _SCHED_CACHE[ck]
     if perfcache.persistent(pk):
-        sched = perfcache.load(pk).get('sched:%d:%d' % (n, int(max_steps)))
+        sched = perfcache.load(pk).get(SCHED_KEY % (n, int(max_steps)))
         if sched is not None:
             sched = perfcache.as_tuples(sched)
             _SCHED_CACHE[ck] = sched
@@ -662,9 +675,9 @@ def _propagate_fused(photons, geometry, seed, max_steps, use_weights,
         bsteps = list(range(1, len(counts) + 1))
         tuned = _tune_schedule(n, bsteps, counts, max_steps)
         _SCHED_CACHE[(pk, n, max_steps)] = tuned
-        suffix = '%d:%d' % (n, max_steps)
-        perfcache.update(pk, {'sched:' + suffix: tuned,
-                              'counts:' + suffix: [int(c) for c in counts]})
+        perfcache.update(pk, {SCHED_KEY % (n, max_steps): tuned,
+                              'counts:%d:%d' % (n, max_steps):
+                              [int(c) for c in counts]})
     if abort:
         logger.warning('ABORTED PHOTONS')
     return result

@@ -136,7 +136,8 @@ class DrawPool:
 
     `generator` supplies the blocks in production; `blocks`, a callable
     b -> (block, N) U[0, 1) array, injects them instead (tests feed the
-    JAX pool's exact blocks)."""
+    JAX pool's exact blocks). `stacked` makes a step's blocks at once, and
+    `DrawPool.over` draws from blocks made before."""
 
     def __init__(self, n, device, generator=None, blocks=None, block=8):
         if (generator is None) == (blocks is None):
@@ -160,10 +161,46 @@ class DrawPool:
         return torch.rand((self.block, self.n), generator=self._gen,
                           device=self.device, dtype=torch.float32)
 
+    @classmethod
+    def over(cls, stacked, count=0, block=8):
+        """A pool that draws from `stacked`, a (B * block, N) U[0, 1)
+        tensor, from stream `count` on, and raises past its end."""
+        pool = cls.__new__(cls)
+        pool.n = stacked.shape[1]
+        pool.device = stacked.device
+        pool.block = block
+        pool._gen = pool._inject = None
+        pool._blocks = list(stacked.split(block))
+        pool._count = count
+        return pool
+
+    def stacked(self, draws):
+        """All the blocks that `draws` streams take, as one (B * block, N)
+        tensor, made as `draw` would make them one by one (a generator
+        fills block b in order, with the numbers torch.rand of that shape
+        would give), and counted as drawn: a step that hands its draws out
+        at once."""
+        if self._count or self._blocks:
+            raise ValueError('stacked() needs a fresh pool')
+        nblocks = -(-draws // self.block)
+        if self._gen is None:
+            out = torch.cat([self._make_block(b) for b in range(nblocks)])
+        else:
+            out = torch.empty((nblocks * self.block, self.n),
+                              dtype=torch.float32, device=self.device)
+            for part in out.split(self.block):
+                part.uniform_(0.0, 1.0, generator=self._gen)
+        self._blocks = list(out.split(self.block))
+        self._count = draws
+        return out
+
     def draw(self, low=0.0, high=1.0):
         "One (N,) stream of U(low, high]."
         b, i = divmod(self._count, self.block)
         if b >= len(self._blocks):
+            if self._gen is None and self._inject is None:
+                raise IndexError('draw %d is past the pool\'s %d blocks'
+                                 % (self._count, len(self._blocks)))
             self._blocks.append(self._make_block(b))
         self._count += 1
         return uniform(self._blocks[b][i], low, high)

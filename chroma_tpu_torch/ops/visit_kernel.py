@@ -12,30 +12,22 @@ bit for bit, as the plain traversal in chroma_tpu_torch.ops.mesh_wide.
 
 `traverse` takes the kernel for CUDA tensors and the plain version for CPU
 tensors. On a CUDA tensor there is no fallback: a failed build or launch
-raises. The kernel is compiled with nvcc at first use into <repo>/build/,
-and `launches` counts its launches. `traverse_thread` launches the first
+raises. The kernel is compiled with nvcc at first use into <repo>/build/
+(ops.cuda_build), and `launches` counts its launches. `traverse_thread` launches the first
 design of this kernel (one thread per ray), kept as the yardstick that the
 warp-cooperative walk is timed against; it counts in `thread_launches`.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 
 import torch
 
 from chroma_tpu_torch.bvh.wide import INST_B0, bounds_cols, fmt_of
-from chroma_tpu_torch.ops import mesh_wide
+from chroma_tpu_torch.ops import cuda_build, mesh_wide
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, 'csrc', 'visit_kernel.cu')
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build')
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '--fmad=false', '-Xptxas', '-v', '-shared',
-              '-Xcompiler', '-fPIC')
+SOURCE = os.path.join(cuda_build.CSRC, 'visit_kernel.cu')
 WARP = 32               # lanes of a warp: the largest group, depth, leaf
 THREAD_MAX_DEPTH = 32   # MAX_D of the one-thread-per-ray design
 _FMT_CODE = {'f32': 0, 'bf16': 1, 'q8': 2}
@@ -59,37 +51,13 @@ _lib = None
 build_log = ''      # nvcc's output (ptxas registers and spills)
 
 
-def _nvcc():
-    found = shutil.which('nvcc')
-    if found:
-        return found
-    home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
-    return os.path.join(home, 'bin', 'nvcc')
-
-
 def build():
-    """Compile csrc/visit_kernel.cu, once per source content and flags, and
-    load it. Returns the ctypes library; raises RuntimeError if nvcc fails.
-    Concurrent builders each write their own temporary file and rename it
-    into place."""
+    """Compile csrc/visit_kernel.cu (ops.cuda_build) and load it. Returns
+    the ctypes library; raises RuntimeError if nvcc fails."""
     global _lib, build_log
     if _lib is not None:
         return _lib
-    with open(SOURCE, 'rb') as fh:
-        digest = hashlib.sha256(fh.read() + ' '.join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:12]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, 'libvisit_kernel_%s.so' % digest)
-    if not os.path.exists(lib_path):
-        tmp = '%s.%d.tmp' % (lib_path, os.getpid())
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, SOURCE]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError('nvcc failed (%d):\n%s'
-                               % (proc.returncode, build_log))
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(lib_path)
+    lib, build_log = cuda_build.build(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     query = [p, i, i, i, i, i, i, p, p, p, p, p, i, p, p, p, p, p, p]
     lib.chroma_visit_inst.argtypes = query + [i, i, p, p]
@@ -155,8 +123,7 @@ def _run(fn, dev, *args):
     "Call a C entry point on dev's current stream; raise on a CUDA error."
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError('visit kernel launch failed: CUDA error %d' % err)
+    cuda_build.check_launch(err, 'visit kernel')
 
 
 def launch(inst, origin, direction, last_hit=None, mask=None,

@@ -7,11 +7,15 @@ taken relative to the plane origin, and the candidate wire's centre
 (k * pitch) is subtracted before any squaring.
 
 JAX walks each photon's candidate-wire window [k_lo, k_hi] in a lockstep
-while_loop that runs while any lane is still inside its window. Eager torch
-would pay a host sync per wire for that condition, so the loop here reads
-the batch's widest window once per plane (one sync) and runs that many
-masked iterations: every lane sees the same k sequence, so the result is
-the same.
+while_loop on the device that runs while any lane is still inside its
+window. On a CUDA tensor the port walks it in K3 (ops.wire_kernel,
+csrc/wire_walk.cu): one thread a lane loops over its own window, plane by
+plane, and nothing is read on the host, so a CUDA graph captures the
+step. `walk_plain` is K3's plain twin, used on the CPU and in the tests:
+eager torch would pay a host sync per wire for the while_loop's condition,
+so it reads the batch's widest window once per plane (one sync) and runs
+that many masked iterations. Every lane sees the same k sequence either
+way, so the result is the same.
 
 The quadratic in the loop cancels badly for rays far from the plane
 (b^2 against a*c), so its rounding decides hits near a wire's edge. XLA
@@ -27,6 +31,7 @@ import dataclasses
 
 import torch
 
+from chroma_tpu_torch.ops import wire_kernel
 from chroma_tpu_torch.ops.linalg import dot, fma
 
 
@@ -179,15 +184,18 @@ def _intersect_one_plane(pos, direction, wp, ip, active):
     return best_t, best_vn, best_nn
 
 
-def intersect_wireplanes(pos, direction, geometry, active):
-    """Nearest analytic wire hit over all planes, with material and surface
-    classification (reference: photon.h:272-354)."""
+def walk_plain(pos, direction, geometry, active):
+    """K3's plain twin: the nearest wire hit over all planes, as (t, plane,
+    vn, nn) per lane: t = +inf and plane = -1 (i32) without a hit; (vn, nn)
+    are the hit point's transverse coordinates about the hit wire's axis.
+    Planes are walked in order and a later one wins only when strictly
+    nearer (reference: photon.h:272-354)."""
     wp = geometry.wireplanes
     n = pos.shape[0]
     dev = pos.device
 
     best_t = torch.full((n,), torch.inf, dtype=torch.float32, device=dev)
-    best_plane = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best_plane = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_vn = torch.zeros(n, dtype=torch.float32, device=dev)
     best_nn = torch.zeros(n, dtype=torch.float32, device=dev)
 
@@ -198,9 +206,16 @@ def intersect_wireplanes(pos, direction, geometry, active):
         best_plane = torch.where(closer, ip, best_plane)
         best_vn = torch.where(closer, vn, best_vn)
         best_nn = torch.where(closer, nn, best_nn)
+    return best_t, best_plane, best_vn, best_nn
 
+
+def classify(walk, direction, wp):
+    """The WirePlaneHit of a walk's (t, plane, vn, nn): the outward
+    cylinder normal, turned to face the photon, and the media and surface
+    on its two sides (reference: photon.h:325-354)."""
+    best_t, best_plane, best_vn, best_nn = walk
     hit = best_plane >= 0
-    plane = torch.clamp(best_plane, min=0)
+    plane = torch.clamp(best_plane, min=0).to(torch.int64)
 
     # outward cylinder normal in world coordinates
     length = torch.sqrt(fma(best_vn, best_vn, best_nn * best_nn))
@@ -218,3 +233,11 @@ def intersect_wireplanes(pos, direction, geometry, active):
         material2=torch.where(outside_now, mat_in, mat_out),
         surface=wp.surface_index[plane],
         inside_to_outside=~outside_now)
+
+
+def intersect_wireplanes(pos, direction, geometry, active):
+    """Nearest analytic wire hit over all planes, with material and surface
+    classification (reference: photon.h:272-354): K3 on CUDA tensors,
+    walk_plain on the CPU."""
+    return classify(wire_kernel.walk(pos, direction, geometry, active),
+                    direction, geometry.wireplanes)

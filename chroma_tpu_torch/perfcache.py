@@ -16,6 +16,10 @@ under the same CHROMA_CACHE_DIR with the same fingerprints; its schedules
 were tuned with another device's cost model, so the port never reads them:
 its entries live in their own directory.
 
+A tuned schedule's key names the step cost it was tuned on
+(ops.propagate.SCHED_KEY): when the step changes its cost model, entries
+tuned on the old one are no longer read.
+
 Fingerprints intentionally cover the geometry (BVH content, table shape)
 and not the optics tables: an optics-only change reuses the schedule
 tuned for the same shapes, which is safe (schedules are performance

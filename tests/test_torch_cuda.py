@@ -479,49 +479,286 @@ def test_replay_adds_the_captured_k1_launches(cuda):
     from chroma_tpu_torch.ops import graphs
     ga = _tiny_on(cuda)
     state = _device_bomb(4096, 8, cuda)
+    from chroma_tpu_torch.ops import step_kernel
     before = visit_kernel.launches
+    before2 = step_kernel.launches
     g = graphs.StepGraph(ga, state, False, 0, True)
     assert visit_kernel.launches == before and g.k1 == 1
+    assert step_kernel.launches == before2 and g.k2 == 1 and g.k3 == 0
     for step in range(3):
         g.replay(4, step)
         assert visit_kernel.launches == before + g.k1 * (step + 1)
+        assert step_kernel.launches == before2 + g.k2 * (step + 1)
     torch.cuda.synchronize()
     assert g.n_replays == 3
 
 
-def _wire_box():
-    "A water box with one absorbing wire plane (a step reads on the host)."
+def _wire_box(angles=(0.0,)):
+    """A water box with absorbing wire planes 3 mm apart from z = 0, their
+    wires at `angles` (degrees) to x."""
     from chroma_tpu_torch.geometry import WirePlane
     absorber = Surface('absorber')
     absorber.set('absorb', 1.0)
     geo = Geometry(vacuum)
     geo.add_solid(Solid(box(2000.0, 2000.0, 2000.0), water, vacuum,
                         surface=absorber))
-    geo.add_wireplane(WirePlane(
-        origin=(0.0, 0.0, 0.0), u=(1.0, 0.0, 0.0), v=(0.0, 1.0, 0.0),
-        pitch=3.0, radius=0.15, umin=-500, umax=500, vmin=-500, vmax=500,
-        surface=absorber, material_inner=glass, material_outer=water))
+    for i, deg in enumerate(angles):
+        a = np.radians(deg)
+        geo.add_wireplane(WirePlane(
+            origin=(0.0, 0.0, 3.0 * i), u=(np.cos(a), np.sin(a), 0.0),
+            v=(-np.sin(a), np.cos(a), 0.0), pitch=3.0, radius=0.15,
+            umin=-500, umax=500, vmin=-500, vmax=500, surface=absorber,
+            material_inner=glass, material_outer=water))
     geo.flatten()
     return geo
 
 
 @pytest.mark.cuda
-def test_capture_with_host_sync_raises(cuda):
-    """Capturing a step that reads a device value on the host (a wire
-    plane's window count) raises, with no eager retry; the card stays
-    usable, and the fused route gives wire planes eager steps."""
-    from chroma_tpu_torch.ops import graphs
+def test_capture_with_host_sync_raises(cuda, monkeypatch):
+    """Capturing a step that reads a device value on the host (here the
+    wire walk's plain twin, which reads the batch's widest window) raises,
+    with no eager retry, and the card stays usable: with K3, which reads
+    nothing on the host, the fused route then captures the same step."""
+    from chroma_tpu_torch.ops import graphs, wire_kernel, wireplane
     from chroma_tpu_torch.ops import propagate as P
     ga = build_geometry_arrays(_wire_box()).to(cuda)
     state = _device_bomb(4096, 9, cuda)
+    monkeypatch.setattr(wire_kernel, 'walk', wireplane.walk_plain)
     before = visit_kernel.launches
     with pytest.raises(RuntimeError):
         graphs.capture(ga, state, False, 0, True)
     assert visit_kernel.launches == before
     assert graphs.lookup(ga, state, False, 0, True) is None
     torch.cuda.synchronize()
-    replays = graphs.replays
+    monkeypatch.undo()
+    captures = graphs.captures
     res, _, _ = P._fused_bomb(state, ga, 3, ((1, 2),), 100)
     torch.cuda.synchronize()
-    assert graphs.replays == replays and visit_kernel.launches > before
+    assert graphs.captures > captures and visit_kernel.launches > before
     assert not res.alive.any()
+
+
+def _optics_box():
+    """Every surface model, bulk reemission and a wire plane, small: a 2 m
+    box of reemitting scintillator behind a wavelength-shifting wall, with
+    complex-film, angular, dichroic, default and plain blocks around the
+    centre and an absorbing wire plane above it (the all-models detector
+    of tests/test_torch_surfaces.py, built from the port alone)."""
+    from chroma_tpu_torch.geometry import (
+        AngularProps, DichroicProps, WirePlane, SURFACE_COMPLEX, SURFACE_WLS,
+        SURFACE_DICHROIC, SURFACE_ANGULAR, standard_wavelengths as wl,
+        standard_times)
+
+    def pairs(x, y):
+        return np.column_stack([x, np.broadcast_to(y, len(x))]).astype(
+            np.float32)
+
+    def gauss_cdf(x, mean, sigma):
+        pdf = np.exp(-0.5 * ((x - mean) / sigma) ** 2)
+        cdf = np.concatenate([[0.0], np.cumsum((pdf[1:] + pdf[:-1]) / 2)])
+        return cdf / cdf[-1]
+
+    scint = Material('wbls')
+    for name, value in (('refractive_index', 1.36),
+                        ('absorption_length', 3000.0),
+                        ('scattering_length', 4000.0)):
+        scint.set(name, value)
+    scint.comp_reemission_prob = [pairs(wl, 0.6), pairs(wl, 0.9)]
+    scint.comp_reemission_wvl_cdf = [pairs(wl, gauss_cdf(wl, 430, 15)),
+                                     pairs(wl, gauss_cdf(wl, 480, 25))]
+    scint.comp_reemission_time_cdf = [
+        pairs(standard_times, 1.0 - np.exp(-standard_times / 5.0)),
+        pairs(standard_times, 1.0 - np.exp(-standard_times / 20.0))]
+    scint.comp_absorption_length = [pairs(wl, 5000.0), pairs(wl, 7500.0)]
+    pc = Surface('pc', model=SURFACE_COMPLEX)
+    for name, value in (('detect', 0.3), ('reflect_diffuse', 0.2),
+                        ('eta', 2.7), ('k', 1.5)):
+        pc.set(name, value)
+    pc.thickness = 25.0
+    pc.transmissive = 1
+    wls = Surface('wls', model=SURFACE_WLS)
+    for name, value in (('absorb', 0.5), ('reemit', 0.8),
+                        ('reflect_specular', 0.1), ('reflect_diffuse', 0.1)):
+        wls.set(name, value)
+    wls.set('reemission_cdf', gauss_cdf(wl, 500.0, 20.0))
+    wls.transmissive = 1
+    dichroic = Surface('dichroic', model=SURFACE_DICHROIC)
+    wl_pts = np.array([300.0, 449.0, 451.0, 800.0])
+    dichroic.dichroic_props = DichroicProps(
+        [0.0, np.pi / 2],
+        [np.column_stack([wl_pts, [1.0, 1.0, 0.0, 0.0]])] * 2,
+        [np.column_stack([wl_pts, [0.0, 0.0, 0.9, 0.9]])] * 2)
+    dichroic.transmissive = 1
+    angular = Surface('angular', model=SURFACE_ANGULAR)
+    angular.angular_props = AngularProps(
+        [0.0, np.pi / 4, np.pi / 2], transmit=[0.8, 0.3, 0.0],
+        reflect_specular=[0.1, 0.3, 0.2], reflect_diffuse=[0.05, 0.2, 0.4])
+    angular.transmissive = 1
+    default = Surface('default')
+    for name, value in (('detect', 0.3), ('absorb', 0.2),
+                        ('reflect_diffuse', 0.2), ('reflect_specular', 0.1)):
+        default.set(name, value)
+    wire = Surface('wire')
+    wire.set('absorb', 1.0)
+    metal = Material('metal')
+    for name, value in (('refractive_index', 1.5), ('absorption_length',
+                                                    1e-3),
+                        ('scattering_length', 1e6)):
+        metal.set(name, value)
+
+    det = Detector(vacuum)
+    det.add_solid(Solid(box(2000.0, 2000.0, 2000.0), scint, vacuum,
+                        surface=wls))
+    det.add_pmt(Solid(box(300.0, 300.0, 300.0), glass, scint, surface=pc),
+                displacement=(500.0, 0, 0))
+    for disp, surf in (((-500.0, 0, 0), angular), ((0, 500.0, 0), dichroic),
+                       ((0, -500.0, 0), default), ((0, 0, -500.0), None)):
+        det.add_solid(Solid(box(300.0, 300.0, 300.0), glass, scint,
+                            surface=surf), displacement=disp)
+    det.add_wireplane(WirePlane(
+        origin=(0, 0, 100.0), u=(1, 0, 0), v=(0, 1, 0), pitch=3.0,
+        radius=1.0, umin=-800, umax=800, vmin=-800, vmax=800, surface=wire,
+        material_inner=metal, material_outer=scint))
+    det.set_time_dist_gaussian(1.2, -6.0, 6.0)
+    det.set_charge_dist_gaussian(1.0, 0.1, 0.5, 1.5)
+    det.flatten()
+    return det
+
+
+def _step_inputs(ga, state, seed, use_weights=False, scatter_first=0,
+                 prune=True):
+    """What K2 is given in a step: the prologue, K1 and (on wire planes)
+    K3 on the card, as propagate_step runs them."""
+    from chroma_tpu_torch.ops import photon, wire_kernel
+    from chroma_tpu_torch.ops.sample import DrawPool, make_generator
+    pool = DrawPool(len(state), state.pos.device,
+                    generator=make_generator(state.pos.device, seed))
+    ph, active, blocks, pruned, limit = photon.step_prologue(
+        state, ga, pool, use_weights, prune)
+    query = visit_kernel.traverse(ga.wide, ph.pos, ph.dir,
+                                  ph.last_hit_triangle, mask=active,
+                                  best_limit=limit)[:5]
+    wires = wire_kernel.walk(ph.pos, ph.dir, ga, active) \
+        if ga.has_wireplanes else None
+    return ph, active, blocks, pruned, query, wires
+
+
+def _lanes_agree(got, ref, min_equal=0.999):
+    """K2 against its plain twin: a lane agrees when its integer fields
+    are equal and its floats match to rtol 1e-5 (absolute floor 1e-5 of
+    the field's scale); at least `min_equal` of the lanes must agree (an
+    ulp of the complex arithmetic or a division can move a roulette draw
+    across its threshold), and the others are printed."""
+    n = len(ref)
+    agree = torch.ones(n, dtype=torch.bool)
+    for name in ('flags', 'last_hit_triangle', 'cur_mat', 'evidx'):
+        agree &= getattr(got, name).cpu() == getattr(ref, name).cpu()
+    for name in ('pos', 'dir', 'pol', 'wavelength', 't', 'weight'):
+        a = getattr(got, name).cpu().reshape(n, -1)
+        b = getattr(ref, name).cpu().reshape(n, -1)
+        atol = 1e-5 * max(float(b.abs().max()), 1.0)
+        agree &= torch.isclose(a, b, rtol=1e-5, atol=atol).all(dim=1)
+    bad = torch.nonzero(~agree).flatten()
+    for i in bad[:10].tolist():
+        print('lane %d differs' % i, {
+            name: (getattr(got, name)[i].tolist(),
+                   getattr(ref, name)[i].tolist())
+            for name in ('flags', 'cur_mat', 'pos', 'dir', 'weight')})
+    assert float(agree.float().mean()) >= min_equal, \
+        '%d of %d lanes differ' % (len(bad), n)
+    return len(bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['tiny', 'optics', 'optics-weights',
+                                  'optics-sf+1', 'optics-sf-1', 'wires'])
+def test_step_kernel_matches_plain(cuda, case):
+    """K2 against its plain twin on the card, same inputs (the prologue,
+    K1 and K3 of each step), three steps: every surface model, bulk
+    reemission, weights, scatter_first +-1 and wire planes; one launch a
+    step."""
+    from chroma_tpu_torch.ops import step_kernel
+    geo = _optics_box() if case.startswith('optics') else (
+        _wire_box((0.0, 60.0, -60.0)) if case == 'wires' else None)
+    ga = build_geometry_arrays(geo).to(cuda) if geo is not None \
+        else _tiny_on(cuda)
+    opts = {'optics-weights': dict(use_weights=True),
+            'optics-sf+1': dict(scatter_first=1, prune=False),
+            'optics-sf-1': dict(scatter_first=-1, prune=False)}.get(case, {})
+    state = _device_bomb(1 << 15, 10, cuda)
+    if case == 'wires':
+        state = state.replace(pos=state.pos + torch.tensor(
+            [0.0, 0.0, -40.0], device=cuda))
+    for s in range(3):
+        o = dict(opts, scatter_first=opts.get('scatter_first', 0) if s == 0
+                 else 0)
+        prune = o.pop('prune', True)
+        ph, active, blocks, pruned, query, wires = _step_inputs(
+            ga, state, (11, s), prune=prune, **o)
+        before = step_kernel.launches
+        got = step_kernel.after_query(ph, ga, blocks, active, pruned, query,
+                                      wires, **o)
+        assert step_kernel.launches == before + 1
+        ref = step_kernel.after_query_plain(ph, ga, blocks, active, pruned,
+                                            query, wires, **o)
+        torch.cuda.synchronize()
+        _lanes_agree(got, ref)
+        state = ref
+
+
+@pytest.mark.cuda
+def test_wire_kernel_matches_plain(cuda):
+    """K3 against its plain twin on the card on three U/V/Y planes:
+    planes equal, distances and transverse coordinates to rtol 1e-5."""
+    from chroma_tpu_torch.ops import wire_kernel, wireplane
+    ga = build_geometry_arrays(_wire_box((0.0, 60.0, -60.0))).to(cuda)
+    rs = np.random.RandomState(12)
+    n = 1 << 16
+    pos = np.column_stack([rs.uniform(-600, 600, (n, 2)),
+                           rs.uniform(-60, 60, n)]).astype(np.float32)
+    d = rs.randn(n, 3)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    pos, d = (torch.from_numpy(x).to(cuda) for x in (pos, d))
+    active = torch.from_numpy(rs.uniform(size=n) > 0.1).to(cuda)
+    before = wire_kernel.launches
+    got = wire_kernel.walk(pos, d, ga, active)
+    assert wire_kernel.launches == before + 1
+    ref = wireplane.walk_plain(pos, d, ga, active)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], ref[1])
+    hit = ref[1] >= 0
+    assert int(hit.sum()) > 100
+    for a, b in zip(got[::2] + got[3:], ref[::2] + ref[3:]):
+        torch.testing.assert_close(a[hit], b[hit], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_wire_plane_replay_matches_eager(cuda):
+    """The fused bomb on a wire-plane geometry takes the graph route: with
+    graph replays and with every step eager, same seed, every field equal
+    bit for bit; K3 and K2 launched once a step either way."""
+    from chroma_tpu_torch.ops import graphs, step_kernel, wire_kernel
+    from chroma_tpu_torch.ops import propagate as P
+    ga = build_geometry_arrays(_optics_box()).to(cuda)
+    state = _device_bomb(1 << 15, 13, cuda)
+    sched = ((1, 2), (2, 2), (4, 2))
+    out = {}
+    for use_graphs in (False, True):
+        counts = (visit_kernel.launches, step_kernel.launches,
+                  wire_kernel.launches, graphs.replays, graphs.captures)
+        res, _, abort = P._fused_bomb(state, ga, (9, 3), sched, 100,
+                                      use_graphs=use_graphs)
+        torch.cuda.synchronize()
+        assert not abort
+        k1, k2, k3, r, c = (now - then for now, then in zip(
+            (visit_kernel.launches, step_kernel.launches,
+             wire_kernel.launches, graphs.replays, graphs.captures), counts))
+        assert k1 == k2 == k3 > 0
+        out[use_graphs] = res
+        if use_graphs:
+            assert r > 0 and c > 0 and k1 == r + c
+        else:
+            assert r == 0 and c == 0
+    for name in FUSED_FIELDS:
+        assert torch.equal(getattr(out[True], name),
+                           getattr(out[False], name)), name

@@ -36,13 +36,16 @@ def _imported(tree):
 
 
 def test_scan_covers_the_port():
-    """The scan sees the host copies, the ops, the kernel wrapper, the
+    """The scan sees the host copies, the ops, the kernel wrappers, the
     entry points (loader, caches, io, facade, profiler, services, CLI), the
     renderer and viewer, and the GDML, analysis and demo-mesh copies."""
     sources = _sources()
     for name in ('event.py', 'geometry.py', 'likelihood.py', 'native.py',
                  os.path.join('demo', 'optics.py'),
                  os.path.join('ops', 'visit_kernel.py'),
+                 os.path.join('ops', 'step_kernel.py'),
+                 os.path.join('ops', 'wire_kernel.py'),
+                 os.path.join('ops', 'cuda_build.py'),
                  os.path.join('bvh', 'build.py'),
                  os.path.join('bvh', 'bvh.py'), 'loader.py', 'cache.py',
                  'stl.py', 'gpu.py', 'profiler.py',
@@ -95,9 +98,9 @@ def test_port_reads_its_own_files():
     "Data, kernel and native sources resolve inside chroma_tpu_torch/."
     from chroma_tpu_torch import native
     from chroma_tpu_torch.demo import optics, pmt
-    from chroma_tpu_torch.ops import visit_kernel
+    from chroma_tpu_torch.ops import step_kernel, visit_kernel, wire_kernel
     for path in (optics._DATA, pmt._DATA, native.SOURCE,
-                 visit_kernel.SOURCE):
+                 visit_kernel.SOURCE, step_kernel.SOURCE, wire_kernel.SOURCE):
         assert os.path.realpath(path).startswith(os.path.realpath(PORT)
                                                  + os.sep), path
         assert os.path.exists(path), path
