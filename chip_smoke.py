@@ -16,8 +16,8 @@ non-zero:
   0. card and software (nvidia-smi name and power limit, torch, CUDA);
   1. build, all at once, into build/: the three kernels with nvcc -- K1,
      the visit kernel (chroma_tpu_torch/csrc/visit_kernel.cu), K2, the
-     step after the query (csrc/step_kernel.cu), K3, the wire walk
-     (csrc/wire_walk.cu) -- and the host geometry kit
+     step around the query (csrc/step_kernel.cu: k2_pre and k2_post), K3,
+     the wire walk (csrc/wire_walk.cu) -- and the host geometry kit
      (chroma_tpu_torch/csrc/geometry_kit.cpp) with g++; print ptxas's
      registers and spills for each kernel;
   2. the kernel against its plain PyTorch version on the card, on 10^4
@@ -31,9 +31,11 @@ non-zero:
      >= 99.9% of lanes flags, last-hit triangles and media equal and
      floats to rtol 1e-5 (absolute floor: 1e-5 of the field's scale);
   4. K1's times at 2^20 and at 10^4 rays from the centre of the quick
-     detector (CUDA events, median of runs taken in turns): the
-     warp-cooperative walk the port runs, the first design (one thread a
-     ray) and the plain version, both designs held to the plain version's
+     detector (CUDA events, median of runs taken in turns; at 10^4 rays
+     also as a launch of a 20-launch CUDA graph, which leaves the host's
+     dispatch out): the warp-cooperative walk the port runs, the first
+     design (one thread a ray) and the plain version, both designs held to
+     the plain version's
      outputs, with the visits by node kind and the rows visited and the
      bound they give; then the two launch choices `traverse` makes (16 or
      32 lanes a ray; a grid of one group a ray or persistent groups) at
@@ -116,9 +118,11 @@ non-zero:
      planes, K3 inside, after the first step at its width, which runs
      eagerly):
      a. the tuner's cost model on this card: graph-replayed quick-detector
-        steps from 2^11 to 2^20 lanes and the boundaries between stages,
-        fitted to lines, printed as ops.propagate's three constants; the
-        step prologue's aten ops, device kernels and ms;
+        steps from 2^11 to 2^20 lanes (and the host's ms to enqueue each)
+        and the boundaries between stages, fitted to lines, printed as
+        ops.propagate's three constants; the step prologue's aten ops,
+        device kernels (at most n_blocks + 1) and ms, as the card runs it
+        (the uniform blocks and k2_pre) and as its plain twin;
      b. 65,536-photon fused bombs on the quick detector and on
         lartpc-wires with every step eager and with graph replays, same
         seed: every field equal bit for bit;
@@ -130,19 +134,28 @@ non-zero:
         fraction against phase 5's CPU run;
      d. quick-optics' bomb and e. Likelihood.eval (nevals 1) on both
         routes in turns.
- 13. K2 and K3 against their plain twins on the card: K2 on 2^20 lanes
+ 13. K2 and K3 against their plain twins on the card: on 2^20 lanes
      (after two steps) of the quick detector, quick-optics (plain,
-     use_weights, scatter_first 1 and -1) and lartpc-wires, same inputs
-     (the prologue, K1, K3 of the step): integer fields and floats to
-     rtol 1e-5 on all but at most 0.1% of the lanes (printed); K3 on the
-     2^20 rays of phase 7's bomb: planes equal, floats to rtol 1e-5; each
-     timed in turns with its twin at 2^11, 2^15 and 2^20 lanes, with its
-     bound.
+     use_weights, scatter_first 1 and -1) and lartpc-wires, k2_pre
+     against step_prologue (flags, active and pruned lanes equal, limits
+     to rtol 1e-5, the lanes that differ counted) and k2_post against its
+     twin on the step's inputs (k2_pre, K1, K3): integer fields and floats
+     to rtol 1e-5 on all but at most 0.1% of the lanes (printed), at 2^20
+     and at an odd width, and bit for bit its first design's (one
+     thread a lane); K3 on the 2^20 rays of phase 7's bomb: planes and
+     floats equal to its twin's and its first design's. Each timed in
+     turns at the main paths' widths (2^11 to 2^20) as a launch of a
+     20-launch CUDA graph: k2_post at 64, 128 and 256 lanes a block, its
+     first design, through its wrapper and its twin; k2_pre and its twin;
+     K3, its first design, its wrapper (its twin at 2^20 only), each with
+     its bound. Then what each main path loses to each kernel against its
+     bound: its steps by width times (time - bound).
 
-The kernels' launches (K1, K2, K3) are counted on each main path (phases 5
+The kernels' launches (K1, k2_pre, k2_post, K3) are counted on each main
+path (phases 5
 to 12, reset just before and read just after; a graph replay adds the
-launches its capture holds) and printed per phase; the first design of K1
-is launched on none of them. The last lines are a JSON object describing
+launches its capture holds) and printed per phase; the first designs of
+K1, K2 and K3 are launched on none of them. The last lines are a JSON object describing
 the kernels, and {"ok": true, "device": {...}}. Needs CUDA and the
 repository checkout.
 """
@@ -196,35 +209,39 @@ def log(*args):
 
 class Launches(int):
     """K1's launches on a path (the int, as every phase reports them),
-    with K2's and K3's beside it (`k2`, `k3`); sums add all three."""
+    with K2's (`k2_pre` and `k2`, k2_post's) and K3's (`k3`) beside it;
+    sums add all four."""
 
-    def __new__(cls, k1, k2=0, k3=0):
+    def __new__(cls, k1, k2_pre=0, k2=0, k3=0):
         self = super().__new__(cls, k1)
-        self.k2, self.k3 = k2, k3
+        self.k2_pre, self.k2, self.k3 = k2_pre, k2, k3
         return self
 
     def __add__(self, other):
         return Launches(int(self) + int(other),
+                        self.k2_pre + getattr(other, 'k2_pre', 0),
                         self.k2 + getattr(other, 'k2', 0),
                         self.k3 + getattr(other, 'k3', 0))
 
     __radd__ = __add__
 
-    def triple(self):
-        return [int(self), self.k2, self.k3]
+    def counts(self):
+        "[K1, k2_pre, k2_post, K3]."
+        return [int(self), self.k2_pre, self.k2, self.k3]
 
 
 def zero_launches():
-    "Set the launch counts of K1, K2 and K3 to 0."
+    "Set the launch counts of K1, K2 (k2_pre, k2_post) and K3 to 0."
     from chroma_tpu_torch.ops import step_kernel, visit_kernel, wire_kernel
     visit_kernel.launches = step_kernel.launches = wire_kernel.launches = 0
+    step_kernel.pre_launches = 0
 
 
 def launches_now():
     "The launch counts of K1, K2 and K3 since zero_launches()."
     from chroma_tpu_torch.ops import step_kernel, visit_kernel, wire_kernel
-    return Launches(visit_kernel.launches, step_kernel.launches,
-                    wire_kernel.launches)
+    return Launches(visit_kernel.launches, step_kernel.pre_launches,
+                    step_kernel.launches, wire_kernel.launches)
 
 
 def card_line():
@@ -634,13 +651,17 @@ def lartpc_geometry():
 @contextlib.contextmanager
 def launch_rays():
     """Within the block, the rays of each visit-kernel query made through
-    visit_kernel.traverse, in a Counter (rays -> queries)."""
+    visit_kernel.traverse and run (not only recorded by a graph capture),
+    in a Counter (rays -> queries)."""
+    import torch
     from chroma_tpu_torch.ops import visit_kernel
     sizes = collections.Counter()
     traverse = visit_kernel.traverse
 
     def counted(inst, origin, *args, **kwargs):
-        sizes[int(origin.shape[0])] += 1
+        # a step graph's capture only records its query
+        if not (origin.is_cuda and torch.cuda.is_current_stream_capturing()):
+            sizes[int(origin.shape[0])] += 1
         return traverse(inst, origin, *args, **kwargs)
     visit_kernel.traverse = counted
     try:
@@ -656,10 +677,29 @@ def graph_cache(geometry):
     return ent[1] if ent is not None and ent[0]() is geometry else {}
 
 
+@contextlib.contextmanager
+def path_widths(geometry):
+    """Within the block, the widths of the steps run on `geometry`: the
+    rays of each eager visit-kernel query (launch_rays) and of each graph
+    replay (the graphs' replay counts). Yields a dict that holds, after the
+    block, 'eager' and 'replayed' Counters (lanes -> steps) and 'all',
+    their sum."""
+    before = {k: g.n_replays for k, g in graph_cache(geometry).items()}
+    out = {}
+    with launch_rays() as sizes:
+        yield out
+    replayed = collections.Counter({
+        k[0]: g.n_replays - before.get(k, 0)
+        for k, g in graph_cache(geometry).items()
+        if g.n_replays > before.get(k, 0)})
+    out.update(eager=sizes, replayed=replayed, all=sizes + replayed)
+
+
 def run_main_path(sim, n, seed, pos=(0, 0, 0), run_daq=True):
     """A bomb of n 400 nm photons from `pos` through sim.simulate, with
     the visit kernel's launches counted from 0 and the rays of each query
-    logged: returns (event, wall s, NaN aborts, launches)."""
+    logged: returns (event, wall s, NaN aborts, launches); the launches'
+    `widths` are the steps by lanes (path_widths' 'all')."""
     import torch
     from chroma_tpu_torch.generator import photon_bomb
     from chroma_tpu_torch import event
@@ -668,9 +708,7 @@ def run_main_path(sim, n, seed, pos=(0, 0, 0), run_daq=True):
     if sim.device.type == 'cuda':
         torch.cuda.synchronize()
     zero_launches()
-    before = {k: g.n_replays
-              for k, g in graph_cache(sim.gpu_geometry).items()}
-    with launch_rays() as sizes:
+    with path_widths(sim.gpu_geometry) as widths:
         t0 = time.perf_counter()
         ev = next(sim.simulate([bomb], run_daq=run_daq, max_steps=100,
                                keep_photons_end=True))
@@ -678,14 +716,11 @@ def run_main_path(sim, n, seed, pos=(0, 0, 0), run_daq=True):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = launches_now()
-    replayed = {k[0]: g.n_replays - before.get(k, 0)
-                for k, g in graph_cache(sim.gpu_geometry).items()
-                if g.n_replays > before.get(k, 0)}
+    launches.widths = widths['all']
     log('  visit-kernel queries by rays, eager: %s; in graph replays: %s'
-        % (', '.join('%d x %d' % (k, sizes[k])
-                     for k in sorted(sizes, reverse=True)) or 'none',
-           ', '.join('%d x %d' % (k, replayed[k])
-                     for k in sorted(replayed, reverse=True)) or 'none'))
+        % tuple(', '.join('%d x %d' % (k, c[k])
+                          for k in sorted(c, reverse=True)) or 'none'
+                for c in (widths['eager'], widths['replayed'])))
     aborts = int(((ev.photons_end.flags & event.NAN_ABORT) != 0).sum())
     return ev, wall, aborts, launches
 
@@ -826,6 +861,7 @@ def phase_lartpc(device, card):
         assert launches > 0 and aborts == 0 and on_wire.sum() > 0
         assert np.isfinite(pe.pos).all()
         row = dict(kind=kind, wall_s=wall, on_wire=float(on_wire.mean()),
+                   widths={str(k): c for k, c in launches.widths.items()},
                    **stats)
         if route == 'fused':
             # the declared route: the fused driver, its steps graphs
@@ -918,10 +954,11 @@ def phase_likelihood(geo, ga, sim, card):
         % (obs.nphotons, int(obs.channels.hit.sum())))
     zero_launches()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    nll = lk.eval(likelihood_gun(13), nevals, nreps=nreps, ndaq=ndaq)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with path_widths(sim.gpu_geometry) as widths:
+        t0 = time.perf_counter()
+        nll = lk.eval(likelihood_gun(13), nevals, nreps=nreps, ndaq=ndaq)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     props = nevals * nreps
     log('  Likelihood.eval: NLL %.3f +- %.3f, wall %.3f s, %.2f '
         'propagations/s of %d photons (%s)' % (
@@ -935,10 +972,12 @@ def phase_likelihood(geo, ga, sim, card):
     torch.cuda.synchronize()
     kwall = time.perf_counter() - t0
     launches = launches_now()
+    launches.widths = widths['all']
     log('  setup_kernel + eval_kernel (navg=2): NLL %.3f +- %.3f, wall '
         '%.3f s, %.2f propagations/s; visit-kernel launches in phase 8: %d'
-        % (knll.nominal_value, knll.s, kwall, 3 * props / kwall,
-           launches))
+        '; Likelihood.eval\'s steps by lanes %s' % (
+            knll.nominal_value, knll.s, kwall, 3 * props / kwall, launches,
+            dict(sorted(widths['all'].items()))))
     assert np.isfinite(nll.nominal_value) and np.isfinite(knll.nominal_value)
     assert launches > 0
 
@@ -1005,13 +1044,25 @@ def phase_k1_times(tables, device, card):
         kinds = by_kind.sum(axis=0).tolist()
         rows_seen = int(seen.sum())
         bound, by, ops, nbytes = k1_bound(table, n, kinds, rows_seen)
-        med, runs = time_turns({
+        fns = {
             'walk': lambda o=o, dn=dn: visit_kernel.traverse(table, o, dn),
             'first': lambda o=o, dn=dn: visit_kernel.traverse_thread(
                 table, o, dn),
-            'plain': lambda o=o, dn=dn: mesh_wide.traverse(table, o, dn)})
-        out[n] = dict(ms=med['walk'], thread_ms=med['first'],
-                      plain_ms=med['plain'], bound_ms=bound, bound_by=by)
+            'plain': lambda o=o, dn=dn: mesh_wide.traverse(table, o, dn)}
+        if n == N_SMALL:
+            # a narrow launch alone times the host's dispatch: here both
+            # designs also run GRAPH_LAUNCHES launches from one graph
+            fns['walk graph'] = graphed(fns['walk'])
+            fns['first graph'] = graphed(fns['first'])
+        med, runs = time_turns(fns)
+        runs = {k: [t / GRAPH_LAUNCHES for t in v] if 'graph' in k else v
+                for k, v in runs.items()}
+        med = {k: float(np.median(v)) for k, v in runs.items()}
+        graph = 'walk graph' in med
+        out[n] = dict(ms=med['walk graph' if graph else 'walk'],
+                      thread_ms=med['first graph' if graph else 'first'],
+                      eager_ms=med['walk'], plain_ms=med['plain'],
+                      bound_ms=bound, bound_by=by)
         log('phase 4: K1, %d rays from the centre, quick/bf16, %s:' % (
             n, card))
         log('  walk and first design equal the plain version; visits %d: '
@@ -1022,7 +1073,12 @@ def phase_k1_times(tables, device, card):
                        table.rows.shape[0], ops, nbytes, bound, by))
         for name, label in (('walk', 'warp-cooperative walk'),
                             ('first', 'first design (one thread a ray)'),
+                            ('walk graph', 'walk, a launch of a %d-launch '
+                             'graph' % GRAPH_LAUNCHES),
+                            ('first graph', 'first design, the same'),
                             ('plain', 'plain version')):
+            if name not in med:
+                continue
             log('  %-32s %9.4f ms (runs %s), %.2f%% of the bound' % (
                 label, med[name], ' '.join('%.4f' % x for x in runs[name]),
                 100.0 * bound / med[name]))
@@ -1031,6 +1087,7 @@ def phase_k1_times(tables, device, card):
         'quick detector, %s (ms, median of runs in turns; traverse: %d '
         'lanes where the table fits, persistent from %d rays)' % (
             card, visit_kernel.GROUP, visit_kernel.PERSISTENT_MIN_RAYS))
+    sweep = {}
     for fmt, sizes in (('bf16', SWEEP), ('f32', (N_TIME,))):
         table = tables[fmt]
         for n in sizes:
@@ -1043,10 +1100,16 @@ def phase_k1_times(tables, device, card):
                         lambda o=o, dn=dn, g=group, p=persistent: \
                         visit_kernel.launch(table, o, dn, group=g,
                                             persistent=p)
-            med, _ = time_turns(fns)
+            # traverse's own choice, a launch of a graph of them
+            fns['traverse, graphed'] = graphed(
+                lambda o=o, dn=dn: visit_kernel.traverse(table, o, dn))
+            med = time_graphed(fns, ('traverse, graphed',))
+            if fmt == 'bf16':
+                sweep[n] = med['traverse, graphed']
             log('  %s (fanout %d) %7d rays: %s' % (
                 fmt, table.fanout, n, '; '.join(
                     '%s %.4f' % kv for kv in med.items())))
+    out['sweep'] = sweep
     return out, err
 
 
@@ -1196,6 +1259,7 @@ def phase_device_source(quick_geo, loaded, device, card, phase5):
     host = photon_bomb(N_BOMB, 400.0, (0, 0, 0))
     uploaded = photon_state_from_host(host, device)
     pair = {'host Photons': [], 'PhotonState': []}
+    ends = []
     for name in ('host Photons', 'PhotonState', 'PhotonState',
                  'host Photons'):
         src = host if name == 'host Photons' else uploaded
@@ -1205,10 +1269,18 @@ def phase_device_source(quick_geo, loaded, device, card, phase5):
         pev, pwall = timed(lambda: next(psim.simulate(
             src, run_daq=True, keep_photons_end=True, max_steps=MAX_STEPS)))
         pair[name].append((pwall, launches_now(), len(pev.flat_hits)))
+        end = pev.photons_end
+        ends.append((len(pev.flat_hits), end.flags, end.pos, end.t,
+                     end.last_hit_triangles))
     log('  the same %d host photons, seed 4, in turns (wall s, K1 launches, '
         'detected): %s' % (N_BOMB, json.dumps(pair)))
-    assert len({runs[1:] for runs in sum(pair.values(), [])}) == 1, \
-        'the two sources gave different histories'
+    # the same history: the detected hits and every photon's end state bit
+    # for bit. (The K1 launches count the steps a stage ran after its last
+    # lane died too, which depends on how far the host ran ahead of its
+    # poll, as in phase 12b.)
+    assert all(e[0] == ends[0][0] and all(
+        np.array_equal(a, b) for a, b in zip(e[1:], ends[0][1:]))
+        for e in ends), 'the two sources gave different histories'
 
     zero_launches()
     gg = gpu.GPUGeometry(quick_geo, arrays=loaded, device='cuda')
@@ -1320,8 +1392,8 @@ def run_tool(module, args, env):
                'from chroma_tpu_torch.ops import (step_kernel, '
                'visit_kernel, wire_kernel); '
                'print("visit-kernel launches", visit_kernel.launches, '
-               'step_kernel.launches, wire_kernel.launches, '
-               'file=sys.stderr)' % (module, module))
+               'step_kernel.pre_launches, step_kernel.launches, '
+               'wire_kernel.launches, file=sys.stderr)' % (module, module))
     proc = subprocess.run([sys.executable, '-c', prelude, *args], env=env,
                           cwd=os.path.dirname(os.path.abspath(__file__)),
                           capture_output=True, text=True, timeout=600)
@@ -1329,7 +1401,8 @@ def run_tool(module, args, env):
         raise RuntimeError('%s failed (%d):\n%s' % (module, proc.returncode,
                                                     proc.stderr[-4000:]))
     launches = Launches(*map(int, re.findall(
-        r'visit-kernel launches (\d+) (\d+) (\d+)', proc.stderr)[-1]))
+        r'visit-kernel launches (\d+) (\d+) (\d+) (\d+)',
+        proc.stderr)[-1]))
     return proc.stdout, proc.stderr, launches
 
 
@@ -1924,7 +1997,7 @@ def sharded_rank(geocache, seed):
                            keep_photons_end=True))
     torch.cuda.synchronize(mesh.device)
     out['wall'] = time.perf_counter() - t0
-    out['launches'] = launches_now().triple()
+    out['launches'] = launches_now().counts()
     profiler.enabled = False
     out['regions'] = {name: st.total for name, st in
                       sorted(profiler.regions.items())}
@@ -2069,6 +2142,7 @@ def check_fused(stats, schedule):
     assert stats['launches'] > 0
     assert stats['launches'] == stats['replays'] + stats['captures'], stats
     assert stats['launches'].k2 == stats['launches'], stats
+    assert stats['launches'].k2_pre == stats['launches'], stats
     assert stats['blocking_reads'] <= len(schedule) + 1, stats
 
 
@@ -2112,7 +2186,7 @@ def phase_cost_model(quick, device, card):
     from chroma_tpu_torch.ops import propagate as P
     geo = quick.to(device)
     big = device_bomb(N_BOMB, 120, device)
-    steps, bounds = [], []
+    steps, bounds, enqueue = [], [], []
     for w in COST_WIDTHS:
         sub = big.map(lambda a: a[:w].contiguous())
         P._steps(sub, geo, 1, 1, 1, False, 0, True, True)   # eager+capture
@@ -2122,9 +2196,15 @@ def phase_cost_model(quick, device, card):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         g.load(sub)
+        torch.cuda.synchronize()
         e0.record()
+        t0 = time.perf_counter()
         for s in range(COST_REPLAYS):
             g.replay(2, 1 + s)
+        # the host's time to enqueue the replays (each re-seeds the
+        # graph's generator and launches it): where it exceeds the card's,
+        # the step time below is the host's
+        enqueue.append((time.perf_counter() - t0) * 1e3 / COST_REPLAYS)
         e1.record()
         torch.cuda.synchronize()
         steps.append(e0.elapsed_time(e1) / COST_REPLAYS)
@@ -2139,6 +2219,9 @@ def phase_cost_model(quick, device, card):
             card, ', '.join('%d: %.3f' % wt for wt in zip(COST_WIDTHS,
                                                            steps)),
             ', '.join('%d: %.3f' % wt for wt in zip(COST_WIDTHS, bounds))))
+    log('  host ms to enqueue a replay, by lanes: %s (beside the card\'s '
+        'ms a step above: the larger of the two sets the step time)' % (
+            ', '.join('%d: %.3f' % wt for wt in zip(COST_WIDTHS, enqueue))))
     log('  step = %.4g ms/lane x w + %.4g ms; boundary = %.4g ms/lane x w '
         '+ %.4g ms -> SCHED_FLOOR_LANES %.0f, SCHED_BOUNDARY_FRAC %.4f, '
         'SCHED_BOUNDARY_LANES %.0f (module defaults %d, %.4f, %d)' % (
@@ -2147,53 +2230,74 @@ def phase_cost_model(quick, device, card):
             P.SCHED_BOUNDARY_FRAC, P.SCHED_BOUNDARY_LANES))
     assert a > 0 and all(np.isfinite(list(consts.values())))
     prologue = prologue_cost(geo, big, device)
-    log('  the step prologue (NaN guard, uniform blocks, pruning limit): %d '
-        'aten ops, %d device kernels; ms by lanes %s (%s)' % (
-            prologue['aten_ops'], prologue['kernels'], ', '.join(
-                '%d: %.4f' % wt for wt in prologue['ms'].items()), card))
+    for name, label in (('kernel', 'the uniform blocks and k2_pre, as the '
+                         'card runs it'),
+                        ('plain', 'its plain twin step_prologue')):
+        row = prologue[name]
+        log('  the step prologue (NaN guard, uniform blocks, pruning '
+            'limit), %s: %d aten ops, %d device kernels; ms by lanes %s, '
+            'the host\'s ms to enqueue it %s (%s)' % (
+                label, row['aten_ops'], row['kernels'], ', '.join(
+                    '%d: %.4f' % wt for wt in row['ms'].items()),
+                ', '.join('%d: %.4f' % wt for wt in row['enqueue_ms']
+                          .items()), card))
+    assert prologue['kernel']['kernels'] <= prologue['n_blocks'] + 1, \
+        prologue
     return dict(step_ms=dict(zip(COST_WIDTHS, steps)),
+                enqueue_ms=dict(zip(COST_WIDTHS, enqueue)),
                 boundary_ms=dict(zip(COST_WIDTHS, bounds)),
                 constants=consts, prologue=prologue, card=card)
 
 
 def prologue_cost(geo, big, device):
-    """The step prologue (photon.step_prologue) on the first lanes of
-    `big` after one step: its aten ops and device kernels (torch.profiler,
-    one call at 2^11 lanes) and its ms at 2^11 lanes and all of them
-    (2^20; CUDA events over COST_REPLAYS calls)."""
+    """The step prologue on the first lanes of `big` after one step, as
+    the card runs it (step_kernel.before_query: the uniform blocks and
+    k2_pre) and as its plain twin (photon.step_prologue, the first
+    card prologue): for each, its aten ops and device kernels (torch.profiler,
+    one call at 2^11 lanes) and its ms at 2^11 lanes and all of them (2^20;
+    CUDA events over COST_REPLAYS calls, and the host's ms to enqueue
+    them)."""
     import torch
     from torch.profiler import profile, ProfilerActivity
-    from chroma_tpu_torch.ops import photon
+    from chroma_tpu_torch.ops import photon, step_kernel
     from chroma_tpu_torch.ops.sample import DrawPool, make_generator
     state = photon.propagate_step(big, geo, DrawPool(
         len(big), device, generator=make_generator(device, 3)))
-
-    def run(w):
-        sub = state.map(lambda a: a[:w])
-        photon.step_prologue(sub, geo, DrawPool(
-            w, device, generator=make_generator(device, 4)))
-    run(1 << 11)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    out = {}
+    for name, fn in (('kernel', step_kernel.before_query),
+                     ('plain', photon.step_prologue)):
+        def run(w, fn=fn):
+            sub = state.map(lambda a: a[:w])
+            fn(sub, geo, DrawPool(w, device,
+                                  generator=make_generator(device, 4)))
         run(1 << 11)
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    aten = sum(e.count for e in events if e.key.startswith('aten::')
-               and e.device_type == torch.autograd.DeviceType.CPU)
-    kernels = sum(e.count for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    ms = {}
-    for w in (1 << 11, len(state)):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(COST_REPLAYS):
-            run(w)
-        e1.record()
-        torch.cuda.synchronize()
-        ms[w] = e0.elapsed_time(e1) / COST_REPLAYS
-    return dict(aten_ops=aten, kernels=kernels, ms=ms)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(1 << 11)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        aten = sum(e.count for e in events if e.key.startswith('aten::')
+                   and e.device_type == torch.autograd.DeviceType.CPU)
+        kernels = sum(e.count for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        ms, host = {}, {}
+        for w in (1 << 11, len(state)):
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            for _ in range(COST_REPLAYS):
+                run(w)
+            host[w] = (time.perf_counter() - t0) * 1e3 / COST_REPLAYS
+            e1.record()
+            torch.cuda.synchronize()
+            ms[w] = e0.elapsed_time(e1) / COST_REPLAYS
+        out[name] = dict(aten_ops=aten, kernels=kernels, ms=ms,
+                         enqueue_ms=host)
+    out['n_blocks'] = step_kernel.n_blocks(geo)
+    return out
 
 
 def phase_replay_vs_eager(geometries, device, card):
@@ -2241,11 +2345,12 @@ def phase_replay_vs_eager(geometries, device, card):
             assert st['launches'].k3 == (st['launches']
                                          if geo.has_wireplanes else 0)
         log('phase 12b: %s, fused bomb of %d photons, schedule %s: graph '
-            'replays equal eager steps bit for bit on every field; K1 / K2 '
+            'replays equal eager steps bit for bit on every field; K1 / '
+            'k2_pre / k2_post '
             '/ K3 launches %s eager, %s on the graph route (replays + eager '
             'steps before captures: %s), blocking reads %s (%s)' % (
-                label, FUSED_CHECK, FIXED_SCHEDULE, se['launches'].triple(),
-                [sg['launches'].triple() for _, sg in graphed],
+                label, FUSED_CHECK, FIXED_SCHEDULE, se['launches'].counts(),
+                [sg['launches'].counts() for _, sg in graphed],
                 ['%d + %d' % (sg['replays'], sg['captures'])
                  for _, sg in graphed],
                 [sg['blocking_reads'] for _, sg in graphed], card))
@@ -2408,7 +2513,43 @@ def phase_fused(quick_geo, quick, sim6, lk, cpu_frac, card):
                           many_events=many, card=card)
 
 
-STEP_WIDTHS = (1 << 11, 1 << 15, 1 << 20)   # phase 13's timed lanes
+GRAPH_LAUNCHES = 20  # launches of one call a timing graph holds
+
+
+def graphed(fn, launches=GRAPH_LAUNCHES):
+    """fn() (one kernel launch through its wrapper) captured `launches`
+    times in one CUDA graph: a callable that replays them all once. Timed
+    by events around it and divided by `launches`, it gives the kernel's
+    time on the card without the host's dispatch: the card runs the
+    launches back to back, as in a step's graph, and the one replay's host
+    call (Python, cudaGraphLaunch) overlaps them instead of preceding a
+    lone kernel on an idle card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return graph.replay
+
+
+def time_graphed(fns, graphs_of, rounds=6):
+    """time_turns over fns, where the names in `graphs_of` are graphed()
+    callables: their medians are divided by GRAPH_LAUNCHES (ms a launch).
+    Returns the medians by name."""
+    med, _ = time_turns(fns, rounds)
+    return {name: t / GRAPH_LAUNCHES if name in graphs_of else t
+            for name, t in med.items()}
+
+
+# phase 13's timed lanes: the widths phase 5's queries show the main paths
+# launching (the likelihood's 2,048 to a bomb's first 2^20), and an odd
+# width (no multiple of a block) where the kernels are held to their twins
+STEP_WIDTHS = (1 << 11, 1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18,
+               1 << 19, 1 << 20)
+ODD_WIDTH = (1 << 20) - 77
+K2_BLOCKS = (64, 128, 256)      # k2_post's block sizes timed
 # f32 operations of one stepping lane in K2 (the decode, bulk transport and
 # a Fresnel boundary: counted from csrc/step_kernel.cu, an estimate); K3's
 # per plane and per candidate wire (csrc/wire_walk.cu's note)
@@ -2419,12 +2560,12 @@ STATE_BYTES = 60    # a PhotonState lane's fields K2 reads and writes
 
 def step_inputs(geo, state, seed, use_weights=False, scatter_first=0,
                 prune=True):
-    """What K2 is given in a step, made as propagate_step makes it on the
-    card: the prologue, K1 and (wire planes) K3."""
-    from chroma_tpu_torch.ops import photon, visit_kernel, wire_kernel
+    """What k2_post is given in a step, made as propagate_step makes it
+    on the card: the prologue (k2_pre), K1 and (wire planes) K3."""
+    from chroma_tpu_torch.ops import step_kernel, visit_kernel, wire_kernel
     from chroma_tpu_torch.ops.sample import DrawPool, make_generator
     dev = state.pos.device
-    ph, active, blocks, pruned, limit = photon.step_prologue(
+    ph, active, blocks, pruned, limit = step_kernel.before_query(
         state, geo, DrawPool(len(state), dev,
                              generator=make_generator(dev, seed)),
         use_weights, prune)
@@ -2437,11 +2578,11 @@ def step_inputs(geo, state, seed, use_weights=False, scatter_first=0,
 
 
 def lanes_agree(label, got, ref):
-    """K2 against its plain twin, assert_same's rules for a step: integer
-    fields equal and floats to RTOL (absolute floor RTOL of the field's
-    scale) on every lane but at most 0.1% (an ulp of a division, of the
-    complex arithmetic or of a transcendental can move a roulette draw
-    across its threshold), those lanes printed. Returns (lanes that
+    """k2_post against its plain twin, assert_same's rules for a step:
+    integer fields equal and floats to RTOL (absolute floor RTOL of the
+    field's scale) on every lane but at most 0.1% (an ulp of a division,
+    of the complex arithmetic or of a transcendental can move a roulette
+    draw across its threshold), those lanes printed. Returns (lanes that
     differ, max |diff| on the others)."""
     n = len(ref)
     agree = np.ones(n, bool)
@@ -2469,29 +2610,36 @@ def lanes_agree(label, got, ref):
     return len(bad), err
 
 
-def replayed(fn):
-    """fn(), one kernel launch through its wrapper, captured once in a
-    CUDA graph: a callable that replays it, so that timing it measures the
-    kernel on the card and not the wrapper's host work (argument checks,
-    the output allocations, ctypes), which a step's graph does not
-    repeat either."""
+def prologue_agree(label, got, ref):
+    """k2_pre against prologue_after_blocks: flags, active and pruned
+    lanes must be equal; the lanes whose limit differs are counted, none
+    beyond RTOL. Returns (lanes that differ, max |diff| of finite
+    limits)."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return graph.replay
+    ph, active, _, pruned, limit = got
+    rph, ractive, _, rpruned, rlimit = ref
+    assert torch.equal(ph.flags, rph.flags), label + ': flags differ'
+    assert torch.equal(active, ractive), label + ': active lanes differ'
+    if rpruned is None:
+        assert pruned is None
+        return 0, 0.0
+    assert torch.equal(pruned, rpruned), label + ': pruned lanes differ'
+    a, b = limit.cpu().numpy(), rlimit.cpu().numpy()
+    finite = np.isfinite(b)
+    assert np.array_equal(finite, np.isfinite(a)), label
+    np.testing.assert_allclose(a[finite], b[finite], rtol=RTOL)
+    return (int((a[finite] != b[finite]).sum()),
+            float(np.abs(a[finite] - b[finite]).max(initial=0.0)))
 
 
 def k2_bound(active, pruned, wires):
-    """The least ms of one K2 launch: each lane's photon read and written
-    (STATE_BYTES each way), its active byte (and pruned byte), its query
-    (28 bytes: tri, dist, code, normal, instance; wires 16 more), and on
-    each stepping lane the three uniforms every stepping lane reads
-    (absorption, scattering, forcing; the path's others are not counted,
-    so the bound is a little low) -- against K2_OPS_LANE operations a
-    stepping lane. Returns (ms, 'bytes' or 'operations')."""
+    """The least ms of one k2_post launch: each lane's photon read and
+    written (STATE_BYTES each way), its active byte (and pruned byte),
+    its query (28 bytes: tri, dist, code, normal, instance; wires 16
+    more), and on each stepping lane the three uniforms every stepping
+    lane reads (absorption, scattering, forcing; the path's others are not
+    counted, so the bound is a little low) -- against K2_OPS_LANE
+    operations a stepping lane. Returns (ms, 'bytes' or 'operations')."""
     n = active.shape[0]
     stepping = int(active.sum())
     lane = 2 * STATE_BYTES + 1 + 28 + (pruned is not None) \
@@ -2500,6 +2648,16 @@ def k2_bound(active, pruned, wires):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = stepping * K2_OPS_LANE / PEAK_F32_S * 1e3
     return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def k2_pre_bound(n, prune):
+    """The least ms of one k2_pre launch over n lanes: position and
+    direction (24 bytes) and flags (4) read, flags and the active byte
+    written; with pruning also the wavelength, the medium and two
+    uniforms read (16) and the pruned byte and the limit written (5). A
+    few operations a lane: bytes bound it."""
+    lane = 24 + 4 + 4 + 1 + (16 + 5 if prune else 0)
+    return n * lane / PEAK_BYTES_S * 1e3, 'bytes'
 
 
 def k3_bound(windows, n):
@@ -2513,25 +2671,93 @@ def k3_bound(windows, n):
     return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
+def cut(t, w):
+    "The first w lanes of a lane tensor (None stays None)."
+    return None if t is None else t[:w].contiguous()
+
+
+def cut_args(args, w):
+    """k2_post's arguments (photons, geometry, blocks, active, pruned,
+    query, wires) cut to their first w lanes."""
+    ph, geo, blocks, active, pruned, query, wires = args
+    return (ph.map(lambda t: cut(t, w)), geo, blocks[:, :w].contiguous(),
+            cut(active, w), cut(pruned, w), tuple(cut(t, w) for t in query),
+            None if wires is None else tuple(cut(t, w) for t in wires))
+
+
+def time_step_kernels(label, geo, ph, active, blocks, pruned, query, wires,
+                      card):
+    """k2_pre and k2_post at each STEP_WIDTHS on the first lanes of one
+    step's inputs, in turns: k2_post at each K2_BLOCKS and its first
+    design (one thread a lane), each a launch of a GRAPH_LAUNCHES-launch
+    graph; k2_post through its wrapper; its plain twin; k2_pre graphed and
+    its plain twin (prologue_after_blocks). Returns {width: row}."""
+    from chroma_tpu_torch.ops import photon, step_kernel
+    prune = pruned is not None
+    rows = {}
+    for w in STEP_WIDTHS:
+        args = cut_args((ph, geo, blocks, active, pruned, query, wires), w)
+        pre = (args[0], geo, args[2], prune)
+        fns = {}
+        for b in K2_BLOCKS:
+            fns['B=%d' % b] = graphed(
+                lambda a=args, b=b: step_kernel.launch(*a, block=b))
+        fns['first design'] = graphed(
+            lambda a=args: step_kernel.launch(*a, design='thread'))
+        fns['k2_pre'] = graphed(lambda a=pre: step_kernel.launch_pre(*a))
+        graphs_of = tuple(fns)
+        fns['wrapper'] = lambda a=args: step_kernel.launch(*a)
+        fns['plain'] = lambda a=args: step_kernel.after_query_plain(*a)
+        fns['k2_pre plain'] = lambda a=pre: photon.prologue_after_blocks(*a)
+        med = time_graphed(fns, graphs_of)
+        bound, by = k2_bound(args[3], args[4], args[6])
+        pre_bound, pre_by = k2_pre_bound(w, prune)
+        block = step_kernel.block_for(w, len(geo.surfaces.models_present))
+        rows[w] = dict(
+            ms=med['B=%d' % block], block=block,
+            by_block={b: med['B=%d' % b] for b in K2_BLOCKS},
+            thread_ms=med['first design'], eager_ms=med['wrapper'],
+            plain_ms=med['plain'], bound_ms=bound, bound_by=by,
+            pre=dict(ms=med['k2_pre'], plain_ms=med['k2_pre plain'],
+                     bound_ms=pre_bound, bound_by=pre_by))
+        log('  %s, %7d lanes: k2_post %s ms by block (the wrapper\'s B=%d; '
+            'a launch of a %d-launch graph), first design %.4f ms, through '
+            'the wrapper %.4f ms, plain twin %.3f ms, bound %.5f ms (%s), '
+            '%.2f%% of it; k2_pre %.4f ms, plain twin %.3f ms, bound %.5f '
+            'ms (%s), %.2f%% of it (%s)' % (
+                label, w, ', '.join('%d: %.4f' % (b, med['B=%d' % b])
+                                    for b in K2_BLOCKS), block,
+                GRAPH_LAUNCHES, med['first design'], med['wrapper'],
+                med['plain'], bound, by, 100.0 * bound / rows[w]['ms'],
+                med['k2_pre'], med['k2_pre plain'], pre_bound, pre_by,
+                100.0 * pre_bound / med['k2_pre'], card))
+    return rows
+
+
 def phase_step_kernels(cases, lartpc_ga, device, card):
-    """Phase 13: K2 and K3 against their plain twins on the card.
+    """Phase 13: K2 (k2_pre, k2_post) and K3 against their plain twins on
+    the card, and timed.
 
     K2: on each (label, arrays, source, options, steps before) of
     `cases`, a 2^20-photon bomb from `source` stepped that many times on
     the card (media known, lanes on surfaces; a lartpc photon lives a
-    step or two), then one step's inputs (the prologue, K1, K3) given to
-    K2 and to step_kernel.after_query_plain: lanes_agree. K3: the 2^20 rays
+    step or two). k2_pre (step_kernel.before_query) against
+    photon.step_prologue with the same generator: prologue_agree. Then
+    one step's inputs (k2_pre, K1, K3) given to k2_post and to
+    step_kernel.after_query_plain: lanes_agree at 2^20 and at ODD_WIDTH,
+    and k2_post equal to its first design bit for bit. K3: the 2^20 rays
     of phase 7's bomb (300 mm below the lartpc planes) against
-    wireplane.walk_plain: planes equal, floats to RTOL. Both timed in
-    turns with their twins at STEP_WIDTHS lanes (the first lanes of the
-    same inputs), beside their bounds: the kernels replayed from a CUDA
-    graph of one launch (the wrapper's host work left out, as in a step's
-    graph) and through their wrappers. Returns the kernels' rows."""
+    wireplane.walk_plain and its first design: planes and floats equal.
+    The cases without options are timed (time_step_kernels), and K3 with
+    its first design at STEP_WIDTHS, beside their bounds. Returns the
+    kernels' rows."""
     import torch
     from chroma_tpu_torch.ops import photon, step_kernel, wire_kernel
     from chroma_tpu_torch.ops import wireplane
     from chroma_tpu_torch.ops.sample import DrawPool, make_generator
-    k2_err, k2_bad, timed_k2 = 0.0, 0, {}
+    k2_err, k2_bad, pre_err, pre_bad, timed = 0.0, 0, 0.0, 0, {}
+    fields = ('pos', 'dir', 'pol', 'wavelength', 't', 'weight', 'flags',
+              'last_hit_triangle', 'evidx', 'cur_mat')
     for label, arrays, source, opts, before in cases:
         geo = arrays.to(device)
         state = device_bomb(N_BOMB, 130, device)
@@ -2541,43 +2767,44 @@ def phase_step_kernels(cases, lartpc_ga, device, card):
             state = photon.propagate_step(state, geo, DrawPool(
                 N_BOMB, device, generator=make_generator(device, 131, s)))
         prune = opts.get('scatter_first', 0) == 0
+        popts = dict(use_weights=opts.get('use_weights', False),
+                     prune=prune)
+        got = step_kernel.before_query(state, geo, DrawPool(
+            N_BOMB, device, generator=make_generator(device, 133)), **popts)
+        ref = photon.step_prologue(state, geo, DrawPool(
+            N_BOMB, device, generator=make_generator(device, 133)), **popts)
+        pbad, perr = prologue_agree(label, got, ref)
+        pre_bad, pre_err = pre_bad + pbad, max(pre_err, perr)
         ph, active, blocks, pruned, query, wires = step_inputs(
             geo, state, (132,), prune=prune, **opts)
         args = (ph, geo, blocks, active, pruned, query, wires)
         got = step_kernel.after_query(*args, **opts)
+        first = step_kernel.launch(*args, design='thread', **opts)
         ref = step_kernel.after_query_plain(*args, **opts)
+        odd = cut_args(args, ODD_WIDTH)
+        got_odd = step_kernel.after_query(*odd, **opts)
+        ref_odd = step_kernel.after_query_plain(*odd, **opts)
         torch.cuda.synchronize()
+        for name in fields:
+            assert torch.equal(getattr(got, name), getattr(first, name)), \
+                '%s: k2_post differs from its first design in %s' % (
+                    label, name)
         bad, err = lanes_agree(label, got, ref)
-        k2_bad += bad
-        k2_err = max(k2_err, err)
-        log('phase 13: K2 against its plain twin, %s (models %s, %s), %d '
-            'lanes (%d stepping): %d lanes differ (at most 0.1%%), max '
-            '|diff| on the others %.3g' % (
+        bad_odd, err_odd = lanes_agree(label + ' odd', got_odd, ref_odd)
+        k2_bad += bad + bad_odd
+        k2_err = max(k2_err, err, err_odd)
+        log('phase 13: K2 against its plain twins, %s (models %s, %s), %d '
+            'lanes (%d stepping): k2_pre against step_prologue: flags, '
+            'active and pruned lanes equal, %d limits differ (max |diff| '
+            '%.3g); k2_post: %d lanes differ (at most 0.1%%), max |diff| on '
+            'the others %.3g, equal to its first design bit for bit; at %d '
+            'lanes %d differ, max |diff| %.3g' % (
                 label, geo.surfaces.models_present, opts or 'plain',
-                N_BOMB, int(active.sum()), bad, err))
-        if opts or label in timed_k2:
-            continue
-        rows = {}
-        for w in STEP_WIDTHS:
-            def cut(t, w=w):
-                return None if t is None else t[:w].contiguous()
-            args = (ph.map(cut), geo, blocks[:, :w].contiguous(),
-                    cut(active), cut(pruned), tuple(map(cut, query)),
-                    None if wires is None else tuple(map(cut, wires)))
-            med, _ = time_turns({
-                'K2': replayed(lambda a=args: step_kernel.launch(*a)),
-                'K2 eager': lambda a=args: step_kernel.launch(*a),
-                'plain': lambda a=args: step_kernel.after_query_plain(*a)})
-            bound, by = k2_bound(args[3], pruned, wires)
-            rows[w] = dict(ms=med['K2'], eager_ms=med['K2 eager'],
-                           plain_ms=med['plain'], bound_ms=bound,
-                           bound_by=by)
-            log('  K2 %s, %7d lanes: %.4f ms (graph-replayed; %.4f ms '
-                'through the wrapper), plain twin %.3f ms, bound %.5f ms '
-                '(%s), %.2f%% of it (%s)' % (
-                    label, w, med['K2'], med['K2 eager'], med['plain'],
-                    bound, by, 100.0 * bound / med['K2'], card))
-        timed_k2[label] = rows
+                N_BOMB, int(active.sum()), pbad, perr, bad, err,
+                ODD_WIDTH, bad_odd, err_odd))
+        if not opts:
+            timed[label] = time_step_kernels(label, geo, ph, active, blocks,
+                                             pruned, query, wires, card)
 
     geo = lartpc_ga.to(device)
     np.random.seed(11)
@@ -2588,42 +2815,67 @@ def phase_step_kernels(cases, lartpc_ga, device, card):
     active = torch.ones(N_BOMB, dtype=torch.bool, device=device)
     table = wire_kernel.planes(geo)
     got = wire_kernel.launch(pos, d, table, active)
+    first = wire_kernel.launch(pos, d, table, active, design='thread')
     ref = wireplane.walk_plain(pos, d, geo, active)
+    got_odd = wire_kernel.launch(pos[:ODD_WIDTH], d[:ODD_WIDTH], table,
+                                 active[:ODD_WIDTH])
     torch.cuda.synchronize()
-    assert torch.equal(got[1], ref[1]), 'K3: planes differ'
-    hit = (ref[1] >= 0).cpu().numpy()
-    k3_err = 0.0
-    for a, b in zip(got[::2] + got[3:], ref[::2] + ref[3:]):
-        a, b = a.cpu().numpy()[hit], b.cpu().numpy()[hit]
-        np.testing.assert_allclose(a, b, rtol=RTOL, atol=1e-6)
-        k3_err = max(k3_err, float(np.abs(a - b).max(initial=0.0)))
+    for a, b, c, e in zip(got, first, ref, got_odd):
+        assert torch.equal(a, b) and torch.equal(a, c), 'K3 differs'
+        assert torch.equal(e, c[:ODD_WIDTH]), 'K3 differs at the odd width'
+    hit = ref[1] >= 0
     windows = wireplane.candidate_windows(pos, d, geo, active)
     log('phase 13: K3 against its plain twin, %d lartpc rays: %d hit a wire, '
-        'planes equal, max |diff| of t, vn, nn %.3g; candidate wires a '
-        'plane %s' % (N_BOMB, int(hit.sum()), k3_err,
-                      [int(w.sum()) for w in windows]))
+        'planes and t, vn, nn equal bit for bit (at %d rays too), and equal '
+        'to the first design; candidate wires a plane %s' % (
+            N_BOMB, int(hit.sum()), ODD_WIDTH,
+            [int(w.sum()) for w in windows]))
     k3_rows = {}
     for w in STEP_WIDTHS:
-        args = (pos[:w].contiguous(), d[:w].contiguous())
-        # the plain twin's lockstep loop takes over a second at any width
-        med, _ = time_turns({
-            'K3': replayed(lambda a=args: wire_kernel.launch(
-                *a, table, active[:w])),
-            'K3 eager': lambda a=args: wire_kernel.launch(*a, table,
-                                                          active[:w]),
-            'plain': lambda a=args: wireplane.walk_plain(*a, geo,
-                                                         active[:w])},
-            rounds=2)
+        args = (pos[:w].contiguous(), d[:w].contiguous(), table, active[:w])
+        med = time_graphed({
+            'K3': graphed(lambda a=args: wire_kernel.launch(*a)),
+            'first design': graphed(
+                lambda a=args: wire_kernel.launch(*a, design='thread')),
+            'wrapper': lambda a=args: wire_kernel.launch(*a)},
+            ('K3', 'first design'))
         bound, by = k3_bound(windows, w)
-        k3_rows[w] = dict(ms=med['K3'], eager_ms=med['K3 eager'],
-                          plain_ms=med['plain'], bound_ms=bound, bound_by=by)
-        log('  K3, %7d rays: %.4f ms (graph-replayed; %.4f ms through the '
-            'wrapper), plain twin %.3f ms, bound %.5f ms (%s), %.2f%% of it '
-            '(%s)' % (w, med['K3'], med['K3 eager'], med['plain'], bound,
-                      by, 100.0 * bound / med['K3'], card))
+        k3_rows[w] = dict(ms=med['K3'], thread_ms=med['first design'],
+                          eager_ms=med['wrapper'], plain_ms=None,
+                          bound_ms=bound, bound_by=by)
+        if w == N_BOMB:
+            # the plain twin's lockstep loop takes over a second a call:
+            # timed at the widest only
+            k3_rows[w]['plain_ms'] = time_turns({'plain': lambda: (
+                wireplane.walk_plain(pos, d, geo, active))}, rounds=2)[0][
+                    'plain']
+        log('  K3, %7d rays: %.4f ms (a launch of a %d-launch graph), first '
+            'design %.4f ms, through the wrapper %.4f ms, plain twin %s, '
+            'bound %.5f ms (%s), %.2f%% of it (%s)' % (
+                w, med['K3'], GRAPH_LAUNCHES, med['first design'],
+                med['wrapper'], 'not timed' if k3_rows[w]['plain_ms'] is None
+                else '%.3f ms' % k3_rows[w]['plain_ms'], bound, by,
+                100.0 * bound / med['K3'], card))
     return dict(k2=dict(max_abs_err=k2_err, lanes_differing=k2_bad,
-                        times=timed_k2),
-                k3=dict(max_abs_err=k3_err, times=k3_rows))
+                        times=timed),
+                k2_pre=dict(max_abs_err=pre_err, lanes_differing=pre_bad),
+                k3=dict(max_abs_err=0.0, times=k3_rows))
+
+
+def main_path_loss(widths, times, key=None):
+    """Milliseconds a main path loses to a kernel against its bound: the
+    launches at each width (`widths`, {lanes: launches}) times (the
+    kernel's time - its bound) at the nearest timed width (log scale; a
+    timed row's key `key` holds the times where given). Returns (ms,
+    launches counted)."""
+    timed = sorted(times)
+    total, count = 0.0, 0
+    for w, k in widths.items():
+        near = min(timed, key=lambda t: abs(np.log2(t) - np.log2(int(w))))
+        row = times[near] if key is None else times[near][key]
+        total += int(k) * (row['ms'] - row['bound_ms'])
+        count += int(k)
+    return total, count
 
 
 def main(argv, work):
@@ -2706,6 +2958,8 @@ def main(argv, work):
 
     # --- 5. the main path
     thread_launches = visit_kernel.thread_launches
+    first_designs = (step_kernel.thread_launches,
+                     wire_kernel.thread_launches)
     log('phase 5: Simulation(quick detector, device=cuda), %d photons, '
         'run_daq=True' % N_BOMB)
     sim = chroma_tpu_torch.Simulation(quick_geo, seed=0, device='cuda',
@@ -2777,6 +3031,10 @@ def main(argv, work):
     launches12, fused = phase_fused(quick_geo, quick, sim6, lk,
                                     len(cev.flat_hits) / N_CHECK, card)
 
+    # phases 5-12 ran the main paths: none launched a first design
+    assert (step_kernel.thread_launches, wire_kernel.thread_launches) \
+        == first_designs, 'a main path launched a first design of K2 or K3'
+
     # --- 13. K2 and K3 against their plain twins, timed
     twins = phase_step_kernels(
         [('quick', quick, (0.0, 0.0, 0.0), {}, 2),
@@ -2815,12 +3073,52 @@ def main(argv, work):
                  '10f gdml': launches10f, '11 sharded': launches11,
                  '12b replay vs eager': launches12b, **launches12}
     log('visit-kernel launches per main path: %s' % json.dumps(per_phase))
-    log('K1, K2, K3 launches per main path: %s' % json.dumps(
-        {k: v.triple() for k, v in per_phase.items()}))
+    log('K1, k2_pre, k2_post, K3 launches per main path: %s' % json.dumps(
+        {k: v.counts() for k, v in per_phase.items()}))
     total = sum(per_phase.values())
-    assert total.k2 > 0 and total.k3 > 0
+    assert total.k2 > 0 and total.k3 > 0 and total.k2_pre > 0
     assert visit_kernel.thread_launches == thread_launches, \
         'a main path launched the first design'
+
+    # what each main path loses to a kernel against its bound: its steps
+    # by width (phase 5's quick bomb, phase 7's first tuned lartpc bomb,
+    # phase 8's Likelihood.eval) times (time - bound) at that width
+    lartpc_widths = next(r['widths'] for r in lartpc
+                         if r.get('kind') == 'tuned')
+    paths = {'5 quick': launches.widths,
+             '7 lartpc-wires tuned': lartpc_widths,
+             '8 likelihood eval': launches8.widths}
+    k2_times = twins['k2']['times']
+    # K1 at phase 4's sweep of ray counts (traverse's choice, graphed),
+    # its bound there the 2^20 rays' operations scaled by the rays (the
+    # visits a ray, about 9.1, do not depend on the count), and at 10^4
+    # rays its own
+    k1_times = {n: dict(ms=t, bound_ms=k1[N_TIME]['bound_ms'] * n / N_TIME)
+                for n, t in k1['sweep'].items()}
+    k1_times[N_SMALL]['bound_ms'] = k1[N_SMALL]['bound_ms']
+    losses = {
+        'K1': {'5 quick': main_path_loss(paths['5 quick'], k1_times),
+               '8 likelihood eval': main_path_loss(
+                   paths['8 likelihood eval'], k1_times)},
+        'k2_pre': {'5 quick': main_path_loss(paths['5 quick'],
+                                             k2_times['quick'], 'pre'),
+                   '8 likelihood eval': main_path_loss(
+                       paths['8 likelihood eval'],
+                       k2_times['quick-optics'], 'pre')},
+        'k2_post': {'5 quick': main_path_loss(paths['5 quick'],
+                                              k2_times['quick']),
+                    '7 lartpc-wires tuned': main_path_loss(
+                        lartpc_widths, k2_times['lartpc-wires']),
+                    '8 likelihood eval': main_path_loss(
+                        paths['8 likelihood eval'],
+                        k2_times['quick-optics'])},
+        'K3': {'7 lartpc-wires tuned': main_path_loss(
+            lartpc_widths, twins['k3']['times'])}}
+    log('main-path loss, ms (launches counted) of each kernel against its '
+        'bound, by path: %s; the paths\' steps by lanes: %s' % (
+            json.dumps(losses), json.dumps({k: {str(w): c for w, c in
+                                                sorted(v.items())}
+                                            for k, v in paths.items()})))
 
     big, small = k1[N_TIME], k1[N_SMALL]
     log(json.dumps({'entry_points': dict(
@@ -2832,6 +3130,8 @@ def main(argv, work):
         card=card)}))
     log(json.dumps({'fused': dict(cost_model=cost, lartpc=lartpc,
                                   **fused)}))
+    quick = k2_times['quick']
+    pre_times = {w: dict(r['pre'], thread_ms=None) for w, r in quick.items()}
     log(json.dumps({'kernels': [{
         'name': 'visit_inst',
         'route': 'cuda',
@@ -2850,6 +3150,7 @@ def main(argv, work):
         'thread_ms': big['thread_ms'],
         'rays_small': N_SMALL,
         'ms_small': small['ms'],
+        'eager_ms_small': small['eager_ms'],
         'plain_ms_small': small['plain_ms'],
         'bound_ms_small': small['bound_ms'],
         'bound_share_small': small['bound_ms'] / small['ms'],
@@ -2860,23 +3161,31 @@ def main(argv, work):
         'bound_ms_camera': camera_k1['bound_ms'],
         'bound_by_camera': camera_k1['bound_by'],
         'bound_share_camera': camera_k1['bound_ms'] / camera_k1['ms'],
-    }, kernel_row('step_after_query', 'step_kernel.cu',
-                  'chroma_tpu/ops/photon.py:1086', total.k2,
-                  {k: v.k2 for k, v in per_phase.items()}, twins['k2'],
-                  twins['k2']['times']['quick']),
+        'main_path_loss_ms': {k: v[0] for k, v in losses['K1'].items()},
+        'by_rays': {str(n): t for n, t in k1_times.items()},
+    }, kernel_row('k2_pre', 'step_kernel.cu',
+                  'chroma_tpu/ops/photon.py:1106', total.k2_pre,
+                  {k: v.k2_pre for k, v in per_phase.items()},
+                  twins['k2_pre'], pre_times, losses['k2_pre']),
+        kernel_row('k2_post', 'step_kernel.cu',
+                   'chroma_tpu/ops/photon.py:1086', total.k2,
+                   {k: v.k2 for k, v in per_phase.items()}, twins['k2'],
+                   quick, losses['k2_post']),
         kernel_row('wire_walk', 'wire_walk.cu',
                    'chroma_tpu/ops/wireplane.py:151', total.k3,
                    {k: v.k3 for k, v in per_phase.items() if v.k3},
-                   twins['k3'], twins['k3']['times'])]}))
+                   twins['k3'], twins['k3']['times'], losses['K3'])]}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
 
 
-def kernel_row(name, source, replaces, launches, per_path, twin, times):
+def kernel_row(name, source, replaces, launches, per_path, twin, times,
+               losses):
     """A kernel's entry of the `kernels` line: launches on the main paths,
-    its time, its plain twin's and its bound at 2^20 lanes (phase 13), and
-    the other widths timed."""
+    its time, its first design's, its plain twin's and its bound at 2^20
+    lanes (phase 13), the other widths timed, and what each main path
+    loses to it (main_path_loss)."""
     big = times[N_BOMB]
     return {'name': name, 'route': 'cuda',
             'source': 'chroma_tpu_torch/csrc/' + source,
@@ -2886,6 +3195,8 @@ def kernel_row(name, source, replaces, launches, per_path, twin, times):
             'ms': big['ms'], 'plain_ms': big['plain_ms'],
             'bound_ms': big['bound_ms'], 'bound_by': big['bound_by'],
             'bound_share': big['bound_ms'] / big['ms'], 'library_ms': None,
+            'thread_ms': big['thread_ms'],
+            'main_path_loss_ms': {k: v[0] for k, v in losses.items()},
             'by_lanes': {str(w): t for w, t in times.items()}}
 
 
@@ -2915,7 +3226,8 @@ def profile_run(label, fn, card, path):
     shares = {name: sum(e.self_device_time_total for e in events
                         if key in e.key) / 1e6
               for name, key in (('K1', 'visit_warp_kernel'),
-                                ('K2', 'step_kernel'),
+                                ('k2_pre', 'pre_kernel'),
+                                ('k2_post', 'step_kernel'),
                                 ('K3', 'wire_walk_kernel'))}
     cpu_ops = sum(e.count for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CPU

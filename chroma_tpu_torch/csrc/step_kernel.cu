@@ -1,18 +1,22 @@
-// K2: everything in a propagation step after the geometry query, one
-// thread a lane, for NVIDIA Hopper (sm_90a).
+// K2: the step around the geometry query, for NVIDIA Hopper (sm_90a), in
+// two launches a step: k2_pre before the query and k2_post after it.
 //
-// Replaces the part of the JAX step that XLA fuses after the traversal:
-// chroma_tpu/ops/photon.py fill_state's context decode (:201-362), bulk
-// transport with reemission, weights and scatter_first, the five surface
-// models, Fresnel and medium tracking (:437-1085), as propagate_step
-// (:1086-1182) runs them. Its contract is the plain PyTorch twin
-// chroma_tpu_torch/ops/step_kernel.py::after_query_plain, which is built
-// from the port's plain functions (ops/photon.py: decode_state,
+// k2_post replaces the part of the JAX step that XLA fuses after the
+// traversal: chroma_tpu/ops/photon.py fill_state's context decode
+// (:201-362), bulk transport with reemission, weights and scatter_first,
+// the five surface models, Fresnel and medium tracking (:437-1085), as
+// propagate_step (:1086-1182) runs them. Its contract is the plain PyTorch
+// twin chroma_tpu_torch/ops/step_kernel.py::after_query_plain, which is
+// built from the port's plain functions (ops/photon.py: decode_state,
 // propagate_to_boundary, propagate_at_surface, propagate_at_boundary):
 // given K1's raw outputs (tri, dist, code, nvec, iid), K3's (t, plane, vn,
 // nn) or none, the photon fields after the NaN guard, the active and
 // pruned lanes, the step's uniform blocks and the geometry's packed
-// tables, it writes the photon fields after the step.
+// tables, it writes the photon fields after the step. k2_pre replaces the
+// per-lane work of the step's prologue (photon.step_prologue after its
+// uniform blocks, which stay torch's uniform_ so that the Philox stream is
+// the plain step's): the NaN guard, the active and pruned lanes and the
+// traversal's pruning limit.
 //
 // The plain step evaluates every surface model present for every lane and
 // keeps each lane's own; here a lane evaluates only its own model. The
@@ -28,19 +32,35 @@
 // minimum and maximum propagate NaN. The thin-film model's complex
 // arithmetic (c10::complex in torch) may differ from it in the last ulp.
 //
-// What bounds it. Per lane it reads the photon (60 bytes), the query (28,
-// and 16 of wires), the active and pruned bytes and 4 bytes for each
-// uniform its path draws (5 in bulk transport, 8 more with reemission, 1-12
-// at a surface, 2 at a Fresnel boundary), and writes the photon (60
-// bytes); the tables (a few hundred KB) stay in L2. Its f32 operations
-// (a few hundred a lane, more on the thin-film path) are far below the
-// card's rate against those bytes, so memory bounds it: about 150-200
-// bytes a lane, ~0.05 ms at 2^20 lanes at 3.35 TB/s.
-// What the design does about it: one thread a lane, every field read once
-// into registers and written once; each lane reads only the uniforms its
-// path draws, and the tables' rows through the read-only cache. Lanes of
-// a warp that take different paths (surface models, reemission) diverge;
-// the thin-film model's complex arithmetic raises the register count.
+// What bounds it. Per lane k2_post reads the photon (60 bytes), the query
+// (28, and 16 of wires), the active and pruned bytes and 4 bytes for each
+// uniform its path draws (5 in bulk transport, 8 more with reemission,
+// 1-12 at a surface, 2 at a Fresnel boundary), and writes the photon (60
+// bytes); the tables (a few hundred KB) stay in L2. Its f32 operations (a
+// few hundred a lane, more on the thin-film path) are far below the card's
+// rate against those bytes, so memory bounds it: about 150-200 bytes a
+// lane, ~0.05 ms at 2^20 lanes at 3.35 TB/s. k2_pre reads 40 bytes a lane
+// (the position, direction, wavelength, flags, medium and two uniforms)
+// and writes 10: bytes bound it too.
+//
+// What the design does about it (step_kernel, k2_post). One thread a lane
+// left a warp running every path any of its lanes took: the lanes that
+// step are scattered among lanes that only copy, and after bulk transport
+// the lanes that reach the boundary split over five surface models and
+// Fresnel alone, the thin-film model the longest. So a block of B lanes
+// runs in two phases. Phase A, a thread a lane: the load, the decode and
+// bulk transport; a lane that ends there writes its photon, and a lane at
+// the boundary writes what the boundary does not change (position, time,
+// last hit), takes a class (its surface model, or Fresnel only) and
+// stashes what the boundary reads in shared memory. The block counts its
+// classes with ballots and scans them, which gives every boundary lane a
+// slot in class order; phase B: thread i takes slot i and runs that lane's
+// model, Fresnel and medium tracking from the stash with the lane's own
+// index (so it reads the lane's own uniforms, and the arithmetic and the
+// result are those of one thread a lane, bit for bit). A warp of phase B
+// runs one model except at the at most five class boundaries of a block.
+// The one-thread-a-lane design stays as step_thread_kernel
+// (chroma_step_thread), launched only to time the two against each other.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC -o libstep_kernel.so
@@ -61,11 +81,14 @@ constexpr int REFLECT_SPECULAR = 1 << 6;
 constexpr int SURFACE_REEMIT = 1 << 7;
 constexpr int SURFACE_TRANSMIT = 1 << 8;
 constexpr int BULK_REEMIT = 1 << 9;
+constexpr int NAN_ABORT = (int)0x80000000u;
+constexpr int TERMINAL = NO_HIT | BULK_ABSORB | SURFACE_DETECT
+                         | SURFACE_ABSORB | NAN_ABORT;
 
 constexpr int BREAK = 0, CONTINUE = 1, PASS = 2;
-// surface models other than the default (0)
-constexpr int SURFACE_COMPLEX = 1, SURFACE_WLS = 2, SURFACE_DICHROIC = 3,
-              SURFACE_ANGULAR = 4;
+// surface models (geometry.SURFACE_*)
+constexpr int SURFACE_DEFAULT = 0, SURFACE_COMPLEX = 1, SURFACE_WLS = 2,
+              SURFACE_DICHROIC = 3, SURFACE_ANGULAR = 4;
 // material and surface property columns (ops/types.py)
 constexpr int MAT_RI = 0, MAT_ABS = 1, MAT_SCAT = 2;
 constexpr int SURF_DETECT = 0, SURF_ABSORB = 1, SURF_REEMIT = 2,
@@ -134,6 +157,18 @@ struct StepArgs {
     int sites[N_SITES];
 };
 
+// Arguments of one k2_pre launch (step_kernel._PreArgs mirrors it).
+struct PreArgs {
+    const float* pos; const float* dir; const float* wl;
+    const int* flags; const int* cur_mat;
+    const float* u;                         // the step's (streams, n)
+    const float* mat_wl;                    // (n_wl, n_mat, 3)
+    int* o_flags; uint8_t* o_active;
+    uint8_t* o_pruned; float* o_limit;      // null: no pruning
+    int n, n_wl, n_mat;
+    float wl0, wl_step;
+};
+
 namespace {
 
 // ---------------------------------------------------------------- helpers
@@ -145,6 +180,10 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
 __device__ __forceinline__ float clamp_min(float x, float lo) {
     return x != x ? x : fmaxf(x, lo);
 }
+// torch.minimum: NaN if either is NaN
+__device__ __forceinline__ float nan_min(float a, float b) {
+    return a != a ? a : (b != b ? b : fminf(a, b));
+}
 // a tensor divided by a Python scalar on the card: times the f32
 // reciprocal (torch's div_true_kernel_cuda)
 __device__ __forceinline__ float divs(float x, float s) {
@@ -153,6 +192,23 @@ __device__ __forceinline__ float divs(float x, float s) {
 __device__ __forceinline__ int sext8(int x) {
     x &= 0xFF;
     return x >= 128 ? x - 256 : x;
+}
+
+// wavelength_lerp_rows' fraction: (jl, frac) of x on a uniform grid of n
+__device__ __forceinline__ void lerp_grid(float x, float x0, float dx, int n,
+                                          int* jl, float* frac) {
+    float xf = divs(x - x0, dx);
+    int j = (int)xf;
+    j = j < 0 ? 0 : (j > n - 2 ? n - 2 : j);
+    *jl = j;
+    *frac = clampf(xf - (float)j, 0.0f, 1.0f);
+}
+// one row of a wavelength-major table t (n_wl, rows, cols), lerped
+__device__ __forceinline__ float lerp_row(const float* t, int rows, int cols,
+                                          int r, int c, int jl, float frac) {
+    float lo = __ldg(t + ((size_t)jl * rows + r) * cols + c);
+    float hi = __ldg(t + ((size_t)(jl + 1) * rows + r) * cols + c);
+    return lo + frac * (hi - lo);
 }
 
 struct V3 { float x, y, z; };
@@ -247,19 +303,12 @@ struct Ctx {
     // wavelength_lerp_rows' fraction: (jl, frac) of x on a uniform grid
     __device__ void grid(float x, float x0, float dx, int n, int* jl,
                          float* frac) const {
-        float xf = divs(x - x0, dx);
-        int j = (int)xf;
-        j = j < 0 ? 0 : (j > n - 2 ? n - 2 : j);
-        *jl = j;
-        *frac = clampf(xf - (float)j, 0.0f, 1.0f);
+        lerp_grid(x, x0, dx, n, jl, frac);
     }
     // one row of a wavelength-major table (n_wl, rows, cols), lerped
     __device__ float wl_row(int table, int rows, int cols, int r, int c,
                             int jl, float frac) const {
-        const float* t = tf(table);
-        float lo = __ldg(t + ((size_t)jl * rows + r) * cols + c);
-        float hi = __ldg(t + ((size_t)(jl + 1) * rows + r) * cols + c);
-        return lo + frac * (hi - lo);
+        return lerp_row(tf(table), rows, cols, r, c, jl, frac);
     }
     // photon._interp_rows on table (R, n)
     __device__ float interp_row(int table, int n, int row, float x, float x0,
@@ -695,14 +744,11 @@ __device__ void fresnel(const Ctx& c, Photon& p, const State& s) {
 
 // ------------------------------------------------------------- the step
 
-// __grid_constant__: the lanes read the arguments in place (no local copy
-// of the struct when a device function takes their address)
-__global__ void __launch_bounds__(128)
-step_kernel(const __grid_constant__ StepArgs a) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= a.n) return;
-    const Ctx c(a, lane);
+// The boundary classes of k2_post's phase B: a lane's surface model (the
+// ids of `model`), or Fresnel alone (no surface, or no model drawn).
+constexpr int C_FRESNEL = 5, N_CLASSES = 6;
 
+__device__ __forceinline__ Photon load_photon(const StepArgs& a, int lane) {
     Photon p;
     p.pos = v3(a.pos[3 * lane], a.pos[3 * lane + 1], a.pos[3 * lane + 2]);
     p.dir = v3(a.dir[3 * lane], a.dir[3 * lane + 1], a.dir[3 * lane + 2]);
@@ -713,8 +759,43 @@ step_kernel(const __grid_constant__ StepArgs a) {
     p.flags = a.flags[lane];
     p.lht = a.lht[lane];
     p.cur_mat = a.cur_mat[lane];
-    const bool active = a.active[lane] != 0;
+    return p;
+}
 
+// the fields the boundary does not change: final after bulk transport
+__device__ __forceinline__ void store_moved(const StepArgs& a, int lane,
+                                            const Photon& p) {
+    a.o_pos[3 * lane] = p.pos.x;
+    a.o_pos[3 * lane + 1] = p.pos.y;
+    a.o_pos[3 * lane + 2] = p.pos.z;
+    a.o_t[lane] = p.t;
+    a.o_lht[lane] = p.lht;
+}
+
+// the fields the boundary changes
+__device__ __forceinline__ void store_turned(const StepArgs& a, int lane,
+                                             const Photon& p) {
+    a.o_dir[3 * lane] = p.dir.x;
+    a.o_dir[3 * lane + 1] = p.dir.y;
+    a.o_dir[3 * lane + 2] = p.dir.z;
+    a.o_pol[3 * lane] = p.pol.x;
+    a.o_pol[3 * lane + 1] = p.pol.y;
+    a.o_pol[3 * lane + 2] = p.pol.z;
+    a.o_wl[lane] = p.wl;
+    a.o_weight[lane] = p.w;
+    a.o_flags[lane] = p.flags;
+    a.o_cur_mat[lane] = p.cur_mat;
+}
+
+// The step up to the boundary: photon.decode_state and bulk transport
+// (photon.propagate_to_boundary with reemission, weights, scatter_first).
+// Returns the lane's boundary class, or -1 when its step ends here (p is
+// then the lane's result: inactive, no hit, absorbed, scattered or
+// reemitted); s is set for a lane that reaches the boundary.
+__device__ int to_boundary(const Ctx& c, Photon& p, State& s) {
+    const StepArgs& a = c.a;
+    const int lane = c.lane;
+    const bool active = a.active[lane] != 0;
     if (active) {
         // ---- photon.decode_state: the boundary context
         const bool pruned = a.pruned != nullptr && a.pruned[lane] != 0;
@@ -770,7 +851,6 @@ step_kernel(const __grid_constant__ StepArgs a) {
         const int inner = sext8(code >> 24);
         const int outer = sext8(code >> 16);
 
-        State s;
         s.surf = sext8(code >> 8);
         const bool outside = dot(face, neg(p.dir)) > 0.0f;
         s.normal = outside ? face : neg(face);
@@ -923,88 +1003,284 @@ step_kernel(const __grid_constant__ StepArgs a) {
             }
             p.t = new_t;
             p.w = w;
-            if (!passed) p.lht = -1;
-
-            if (passed) {
-                // ---- at the boundary: the surface model, then Fresnel
-                const bool has_surface = s.surf != -1;
-                int cmd = PASS;
-                if (has_surface) {
-                    // photon.propagate_at_surface, the lane's own model
-                    const int sidx = s.surf < 0 ? 0 : s.surf;
-                    const int model = __ldg(c.ti(T_MODEL) + sidx);
-                    float sp[7];
-                    if (sidx < a.n_surf) {
-                        int sjl; float sfrac;
-                        c.grid(p.wl, a.wl0, a.wl_step, a.n_wl, &sjl, &sfrac);
-#pragma unroll
-                        for (int k = 0; k < 7; ++k)
-                            sp[k] = c.wl_row(T_SURF_WL, a.n_surf, 8, sidx, k,
-                                             sjl, sfrac);
-                    } else {
-#pragma unroll
-                        for (int k = 0; k < 7; ++k) sp[k] = 0.0f;
-                    }
-                    if (model == SURFACE_COMPLEX && c.present(S_CX_U)) {
-                        cmd = complex_surface(
-                            c, p, s, sp, __ldg(c.tf(T_THICKNESS) + sidx),
-                            __ldg(c.ti(T_TRANSMISSIVE) + sidx) != 0);
-                    } else if (model == SURFACE_WLS && c.present(S_WLS_U)) {
-                        cmd = wls_surface(c, p, s, sp, sidx);
-                    } else if (model == SURFACE_DICHROIC
-                               && c.present(S_DI_U)) {
-                        cmd = dichroic_surface(c, p, s, sidx);
-                    } else if (model == SURFACE_ANGULAR
-                               && c.present(S_AN_U)) {
-                        cmd = angular_surface(c, p, s, sidx);
-                    } else if (c.present(S_DEF_U)) {
-                        cmd = default_surface(c, p, s, sp);
-                    }
-                }
-                if (cmd == PASS) fresnel(c, p, s);
-                // medium tracking: through the boundary plane -> material2
-                const bool crossed = dot(p.dir, s.normal) < 0.0f;
-                p.cur_mat = crossed ? s.mat2 : s.mat1;
-            } else {
+            if (!passed) {
+                p.lht = -1;
                 p.cur_mat = s.mat1;
+                return -1;
             }
+            // ---- at the boundary: the lane's surface model, or Fresnel
+            if (s.surf == -1) return C_FRESNEL;
+            const int sidx = s.surf < 0 ? 0 : s.surf;
+            const int model = __ldg(c.ti(T_MODEL) + sidx);
+            if (model == SURFACE_COMPLEX && c.present(S_CX_U))
+                return SURFACE_COMPLEX;
+            if (model == SURFACE_WLS && c.present(S_WLS_U))
+                return SURFACE_WLS;
+            if (model == SURFACE_DICHROIC && c.present(S_DI_U))
+                return SURFACE_DICHROIC;
+            if (model == SURFACE_ANGULAR && c.present(S_AN_U))
+                return SURFACE_ANGULAR;
+            if (c.present(S_DEF_U)) return SURFACE_DEFAULT;
+            return C_FRESNEL;
         }
     }
+    return -1;
+}
 
-    a.o_pos[3 * lane] = p.pos.x;
-    a.o_pos[3 * lane + 1] = p.pos.y;
-    a.o_pos[3 * lane + 2] = p.pos.z;
-    a.o_dir[3 * lane] = p.dir.x;
-    a.o_dir[3 * lane + 1] = p.dir.y;
-    a.o_dir[3 * lane + 2] = p.dir.z;
-    a.o_pol[3 * lane] = p.pol.x;
-    a.o_pol[3 * lane + 1] = p.pol.y;
-    a.o_pol[3 * lane + 2] = p.pol.z;
-    a.o_wl[lane] = p.wl;
-    a.o_t[lane] = p.t;
-    a.o_weight[lane] = p.w;
-    a.o_flags[lane] = p.flags;
-    a.o_lht[lane] = p.lht;
-    a.o_cur_mat[lane] = p.cur_mat;
+// At the boundary: the lane's surface model of class `cls`
+// (photon.propagate_at_surface), then Fresnel if it passes, then medium
+// tracking: through the boundary plane -> material2.
+__device__ void at_boundary(const Ctx& c, Photon& p, const State& s,
+                            int cls) {
+    const StepArgs& a = c.a;
+    int cmd = PASS;
+    if (cls != C_FRESNEL) {
+        const int sidx = s.surf < 0 ? 0 : s.surf;
+        float sp[7];
+        if (sidx < a.n_surf) {
+            int sjl; float sfrac;
+            c.grid(p.wl, a.wl0, a.wl_step, a.n_wl, &sjl, &sfrac);
+#pragma unroll
+            for (int k = 0; k < 7; ++k)
+                sp[k] = c.wl_row(T_SURF_WL, a.n_surf, 8, sidx, k, sjl, sfrac);
+        } else {
+#pragma unroll
+            for (int k = 0; k < 7; ++k) sp[k] = 0.0f;
+        }
+        if (cls == SURFACE_COMPLEX) {
+            cmd = complex_surface(c, p, s, sp, __ldg(c.tf(T_THICKNESS) + sidx),
+                                  __ldg(c.ti(T_TRANSMISSIVE) + sidx) != 0);
+        } else if (cls == SURFACE_WLS) {
+            cmd = wls_surface(c, p, s, sp, sidx);
+        } else if (cls == SURFACE_DICHROIC) {
+            cmd = dichroic_surface(c, p, s, sidx);
+        } else if (cls == SURFACE_ANGULAR) {
+            cmd = angular_surface(c, p, s, sidx);
+        } else {
+            cmd = default_surface(c, p, s, sp);
+        }
+    }
+    if (cmd == PASS) fresnel(c, p, s);
+    const bool crossed = dot(p.dir, s.normal) < 0.0f;
+    p.cur_mat = crossed ? s.mat2 : s.mat1;
+}
+
+// ------------------------------------------------ k2_post, the first design
+
+// One thread a lane (the first design), launched only to time the regrouped
+// kernel against it.
+__global__ void __launch_bounds__(128)
+step_thread_kernel(const __grid_constant__ StepArgs a) {
+    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= a.n) return;
+    const Ctx c(a, lane);
+    Photon p = load_photon(a, lane);
+    State s;
+    const int cls = to_boundary(c, p, s);
+    if (cls >= 0) at_boundary(c, p, s, cls);
+    store_moved(a, lane, p);
+    store_turned(a, lane, p);
+}
+
+// ------------------------------------------ k2_post, regrouped by path
+
+// What phase B reads of a boundary lane, in shared memory by slot:
+// f32 words (direction, polarization, wavelength, weight, the boundary
+// normal, the two refractive indices) and i32 words (flags, the two
+// materials, the surface, and the lane's thread | its class << 16).
+enum StashF { F_DIR = 0, F_POL = 3, F_WL = 6, F_W = 7, F_NORMAL = 8,
+              F_RI1 = 11, F_RI2 = 12, N_STASH_F = 13 };
+enum StashI { I_FLAGS, I_MAT1, I_MAT2, I_SURF, I_META, N_STASH_I };
+constexpr int MAX_BLOCK = 256;
+
+__host__ __device__ __forceinline__ int post_smem_bytes(int block) {
+    return 4 * (block * (N_STASH_F + N_STASH_I)
+                + 2 * (block / 32) * N_CLASSES + 1);
+}
+
+__global__ void __launch_bounds__(MAX_BLOCK)
+step_kernel(const __grid_constant__ StepArgs a) {
+    extern __shared__ int smem[];
+    const int nb = blockDim.x, tid = threadIdx.x;
+    const int base = blockIdx.x * nb, lane = base + tid;
+    const int warp = tid >> 5, wl = tid & 31, nwarps = nb >> 5;
+    float* sf = reinterpret_cast<float*>(smem);     // [N_STASH_F][nb]
+    int* si = smem + N_STASH_F * nb;                // [N_STASH_I][nb]
+    int* count = si + N_STASH_I * nb;               // [nwarps][N_CLASSES]
+    int* start = count + nwarps * N_CLASSES;        // [nwarps][N_CLASSES]
+    int* n_boundary = start + nwarps * N_CLASSES;
+
+    // phase A: a thread a lane up to the boundary
+    int cls = -1;
+    Photon p;
+    State s;
+    if (lane < a.n) {
+        const Ctx c(a, lane);
+        p = load_photon(a, lane);
+        cls = to_boundary(c, p, s);
+        store_moved(a, lane, p);
+        if (cls < 0) store_turned(a, lane, p);
+    }
+
+    // regroup: the block's classes counted and scanned, a slot a lane
+    const unsigned below = (1u << wl) - 1u;
+    int rank = 0;
+    for (int k = 0; k < N_CLASSES; ++k) {
+        const unsigned m = __ballot_sync(0xffffffffu, cls == k);
+        if (cls == k) rank = __popc(m & below);
+        if (wl == 0) count[warp * N_CLASSES + k] = __popc(m);
+    }
+    __syncthreads();
+    if (tid == 0) {
+        int run = 0;
+        for (int k = 0; k < N_CLASSES; ++k)
+            for (int w = 0; w < nwarps; ++w) {
+                start[w * N_CLASSES + k] = run;
+                run += count[w * N_CLASSES + k];
+            }
+        *n_boundary = run;
+    }
+    __syncthreads();
+    if (cls >= 0) {
+        const int slot = start[warp * N_CLASSES + cls] + rank;
+        sf[(F_DIR + 0) * nb + slot] = p.dir.x;
+        sf[(F_DIR + 1) * nb + slot] = p.dir.y;
+        sf[(F_DIR + 2) * nb + slot] = p.dir.z;
+        sf[(F_POL + 0) * nb + slot] = p.pol.x;
+        sf[(F_POL + 1) * nb + slot] = p.pol.y;
+        sf[(F_POL + 2) * nb + slot] = p.pol.z;
+        sf[F_WL * nb + slot] = p.wl;
+        sf[F_W * nb + slot] = p.w;
+        sf[(F_NORMAL + 0) * nb + slot] = s.normal.x;
+        sf[(F_NORMAL + 1) * nb + slot] = s.normal.y;
+        sf[(F_NORMAL + 2) * nb + slot] = s.normal.z;
+        sf[F_RI1 * nb + slot] = s.rindex1;
+        sf[F_RI2 * nb + slot] = s.rindex2;
+        si[I_FLAGS * nb + slot] = p.flags;
+        si[I_MAT1 * nb + slot] = s.mat1;
+        si[I_MAT2 * nb + slot] = s.mat2;
+        si[I_SURF * nb + slot] = s.surf;
+        si[I_META * nb + slot] = tid | (cls << 16);
+    }
+    __syncthreads();
+
+    // phase B: thread i takes slot i, its lane's boundary
+    if (tid < *n_boundary) {
+        const int meta = si[I_META * nb + tid];
+        const int l = base + (meta & 0xffff);
+        Photon q;
+        q.pos = v3(0.0f, 0.0f, 0.0f);
+        q.dir = v3(sf[(F_DIR + 0) * nb + tid], sf[(F_DIR + 1) * nb + tid],
+                   sf[(F_DIR + 2) * nb + tid]);
+        q.pol = v3(sf[(F_POL + 0) * nb + tid], sf[(F_POL + 1) * nb + tid],
+                   sf[(F_POL + 2) * nb + tid]);
+        q.wl = sf[F_WL * nb + tid];
+        q.t = 0.0f;
+        q.w = sf[F_W * nb + tid];
+        q.flags = si[I_FLAGS * nb + tid];
+        q.lht = 0;
+        q.cur_mat = 0;
+        State b;
+        b.dist = b.abslen = b.scatlen = 0.0f;
+        b.normal = v3(sf[(F_NORMAL + 0) * nb + tid],
+                      sf[(F_NORMAL + 1) * nb + tid],
+                      sf[(F_NORMAL + 2) * nb + tid]);
+        b.rindex1 = sf[F_RI1 * nb + tid];
+        b.rindex2 = sf[F_RI2 * nb + tid];
+        b.mat1 = si[I_MAT1 * nb + tid];
+        b.mat2 = si[I_MAT2 * nb + tid];
+        b.surf = si[I_SURF * nb + tid];
+        const Ctx c(a, l);
+        at_boundary(c, q, b, meta >> 16);
+        store_turned(a, l, q);
+    }
+}
+
+// ------------------------------------------------------------- k2_pre
+
+// photon.step_prologue after its uniform blocks, one thread a lane: the
+// NaN guard, the active lanes and, with pruning, the interaction distance
+// that bounds the traversal (the current medium's lengths at the lane's
+// wavelength, sampled from streams 0 and 1 as DrawPool.draw maps them).
+__global__ void __launch_bounds__(128)
+pre_kernel(const __grid_constant__ PreArgs a) {
+    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= a.n) return;
+    int flags = a.flags[lane];
+    const bool alive = (flags & TERMINAL) == 0;
+    // dir.sum(-1) + pos.sum(-1)
+    const float sum = ((a.dir[3 * lane] + a.dir[3 * lane + 1])
+                       + a.dir[3 * lane + 2])
+                      + ((a.pos[3 * lane] + a.pos[3 * lane + 1])
+                         + a.pos[3 * lane + 2]);
+    const bool nan_abort = alive && (sum != sum);
+    if (nan_abort) flags |= NO_HIT | NAN_ABORT;
+    const bool active = alive && !nan_abort;
+    a.o_flags[lane] = flags;
+    a.o_active[lane] = active;
+    if (a.o_pruned == nullptr) return;
+    const int mat = a.cur_mat[lane];
+    const int safe = mat < 0 ? 0 : mat;
+    float abslen = 0.0f, scatlen = 0.0f;       // select_rows: 0 outside
+    if (safe < a.n_mat) {
+        int jl; float frac;
+        lerp_grid(a.wl[lane], a.wl0, a.wl_step, a.n_wl, &jl, &frac);
+        abslen = lerp_row(a.mat_wl, a.n_mat, 3, safe, MAT_ABS, jl, frac);
+        scatlen = lerp_row(a.mat_wl, a.n_mat, 3, safe, MAT_SCAT, jl, frac);
+    }
+    const float pre_abs = -abslen * logf(1.0f - __ldg(a.u + lane) * 1.0f);
+    const float pre_scat =
+        -scatlen * logf(1.0f - __ldg(a.u + (size_t)a.n + lane) * 1.0f);
+    const float interaction = nan_min(pre_abs, pre_scat);
+    // near-vacuum media stay unpruned; the Python scalars in f32
+    const bool pruned = active && mat >= 0 && interaction < (float)1e20;
+    a.o_pruned[lane] = pruned;
+    a.o_limit[lane] = pruned ? interaction * (float)(1.0 + 1e-4)
+                             : __int_as_float(0x7f800000);
 }
 
 }  // namespace
 
-// Loads the kernel's module now (CUDA's lazy loading would otherwise load
-// it at the first launch, which may be inside a graph capture).
+// Loads the kernels now (CUDA's lazy loading would otherwise load each at
+// its first launch, which may be inside a graph capture).
 extern "C" int chroma_step_load() {
     cudaFuncAttributes attr;
-    return (int)cudaFuncGetAttributes(&attr, step_kernel);
+    int err = (int)cudaFuncGetAttributes(&attr, step_kernel);
+    if (!err) err = (int)cudaFuncGetAttributes(&attr, pre_kernel);
+    if (!err) err = (int)cudaFuncGetAttributes(&attr, step_thread_kernel);
+    return err;
 }
 
-// sizeof(StepArgs), which the wrapper checks against its own layout.
+// sizeof(StepArgs) and sizeof(PreArgs), which the wrapper checks against
+// its own layouts.
 extern "C" int chroma_step_args_size() { return (int)sizeof(StepArgs); }
+extern "C" int chroma_step_pre_args_size() { return (int)sizeof(PreArgs); }
 
-// One launch over args.n lanes on `stream`; returns cudaGetLastError().
-extern "C" int chroma_step(StepArgs args, void* stream) {
+// k2_post: one launch over args.n lanes in blocks of `block` (a multiple
+// of 32, at most MAX_BLOCK) on `stream`; returns cudaGetLastError().
+extern "C" int chroma_step(StepArgs args, int block, void* stream) {
+    if (args.n <= 0) return (int)cudaSuccess;
+    if (block < 32 || block > MAX_BLOCK || block % 32 != 0)
+        return (int)cudaErrorInvalidValue;
+    step_kernel<<<(args.n + block - 1) / block, block,
+                  post_smem_bytes(block), (cudaStream_t)stream>>>(args);
+    return (int)cudaGetLastError();
+}
+
+// The same by the first design, one thread a lane (timing only).
+extern "C" int chroma_step_thread(StepArgs args, void* stream) {
     if (args.n <= 0) return (int)cudaSuccess;
     const int threads = 128;
-    step_kernel<<<(args.n + threads - 1) / threads, threads, 0,
-                  (cudaStream_t)stream>>>(args);
+    step_thread_kernel<<<(args.n + threads - 1) / threads, threads, 0,
+                         (cudaStream_t)stream>>>(args);
+    return (int)cudaGetLastError();
+}
+
+// k2_pre: one launch over args.n lanes on `stream`.
+extern "C" int chroma_step_pre(PreArgs args, void* stream) {
+    if (args.n <= 0) return (int)cudaSuccess;
+    const int threads = 128;
+    pre_kernel<<<(args.n + threads - 1) / threads, threads, 0,
+                 (cudaStream_t)stream>>>(args);
     return (int)cudaGetLastError();
 }

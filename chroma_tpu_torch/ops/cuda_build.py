@@ -9,6 +9,7 @@ because the plain PyTorch versions round every `a * b + c` twice except
 where they call linalg.fma, and the kernels write fmaf exactly there. No
 --use_fast_math: torch's CUDA logf/expf/sinf/sqrtf are the precise
 libdevice functions, and so are the kernels'. A failed build raises.
+`mask_bytes` hands a kernel a bool lane mask as its bytes without a copy.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import os
 import shutil
 import subprocess
 import weakref
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
@@ -82,3 +85,17 @@ def check_launch(err, what):
     "Raise on a non-zero CUDA error code returned by a C entry point."
     if err != 0:
         raise RuntimeError('%s launch failed: CUDA error %d' % (what, err))
+
+
+def mask_bytes(mask, n, dev, name='active'):
+    """A bool (or u8) lane mask as the u8 bytes a kernel reads: a view of
+    the bool tensor's storage, which launches nothing. Raises on another
+    dtype, shape, device or a non-contiguous mask."""
+    if mask.dtype == torch.bool:
+        mask = mask.view(torch.uint8)
+    if mask.dtype != torch.uint8 or tuple(mask.shape) != (n,) \
+            or mask.device != dev or not mask.is_contiguous():
+        raise ValueError('%s: want a contiguous bool or u8 (%d,) mask on %s, '
+                         'got %s %s on %s' % (name, n, dev, mask.dtype,
+                                              tuple(mask.shape), mask.device))
+    return mask

@@ -2,13 +2,14 @@
 on the fused-bomb path of chroma_tpu.ops.propagate (no module twin in the
 JAX package).
 
-A step on the card is the prologue's torch ops (about 30) and a launch
-each of K1 (the geometry query), K3 (the wire walk, on wire-plane
-geometries) and K2 (everything after the query), each dispatched from
-the host. A `StepGraph` captures `propagate_step` once for a static lane
-count, the kernels' launches included (they are ctypes launches on
-torch's current stream, which is the capture stream), and then replays
-the capture once per step: one host call a step.
+A step on the card is the uniform blocks' torch ops (one `uniform_` a
+block of eight streams) and a launch each of K2's k2_pre (the prologue's
+NaN guard and pruning limit), K1 (the geometry query), K3 (the wire walk,
+on wire-plane geometries) and K2's k2_post (everything after the query),
+each dispatched from the host. A `StepGraph` captures `propagate_step`
+once for a static lane count, the kernels' launches included (they are
+ctypes launches on torch's current stream, which is the capture stream),
+and then replays the capture once per step: one host call a step.
 
 What a replay must not bake in:
   * the random draws. Each graph owns a torch.Generator registered with
@@ -25,10 +26,11 @@ What a replay must not bake in:
     capture), and K2's and K3's geometry tables are packed before the
     capture begins.
 
-The kernels' launch counters (visit_kernel, step_kernel, wire_kernel
-`.launches`) move while the step is captured, for launches that are only
-recorded; the capture takes them back, and every replay adds the
-launches the graph holds (`k1`, `k2`, `k3`).
+The kernels' launch counters (visit_kernel.launches,
+step_kernel.launches for k2_post and step_kernel.pre_launches for k2_pre,
+wire_kernel.launches) move while the step is captured, for launches that
+are only recorded; the capture takes them back, and every replay adds the
+launches the graph holds (`k1`, `k2`, `k2_pre`, `k3`).
 
 Graphs are cached per geometry by (lane count, use_weights, scatter_first
 of the step, prune), as XLA caches compiled programs by static
@@ -70,8 +72,11 @@ captures = 0
 capture_s = 0.0
 replays = 0
 
-# the kernels whose launches a graph records: (attribute, module)
-KERNELS = (('k1', visit_kernel), ('k2', step_kernel), ('k3', wire_kernel))
+# the kernels whose launches a graph records: (attribute, module, the
+# module's counter)
+KERNELS = (('k1', visit_kernel, 'launches'), ('k2', step_kernel, 'launches'),
+           ('k2_pre', step_kernel, 'pre_launches'),
+           ('k3', wire_kernel, 'launches'))
 
 # graphs kept per geometry: well above the widths of one bomb (at most
 # CHROMA_SCHED_MAX_STAGES + 1 stages, two mop-up buckets, and step 0's
@@ -121,7 +126,7 @@ class StepGraph:
         self.graph.register_generator_state(self.generator)
         side = _STREAMS.setdefault(dev.index, torch.cuda.Stream(dev))
         side.wait_stream(current)
-        before = {name: mod.launches for name, mod in KERNELS}
+        before = {name: getattr(mod, ctr) for name, mod, ctr in KERNELS}
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -157,11 +162,11 @@ class StepGraph:
             current.wait_stream(side)
             _ANCHORS.setdefault(dev.index, self.graph)
             # the launches the capture recorded run only when replayed
-            for name, mod in KERNELS:
-                setattr(self, name, mod.launches - before[name])
+            for name, mod, ctr in KERNELS:
+                setattr(self, name, getattr(mod, ctr) - before[name])
         finally:
-            for name, mod in KERNELS:
-                mod.launches = before[name]
+            for name, mod, ctr in KERNELS:
+                setattr(mod, ctr, before[name])
             if collecting:
                 gc.enable()
         self.n_replays = 0
@@ -180,8 +185,8 @@ class StepGraph:
         global replays
         self.generator.manual_seed(mix_seed(*seed))
         self.graph.replay()
-        for name, mod in KERNELS:
-            mod.launches += getattr(self, name)
+        for name, mod, ctr in KERNELS:
+            setattr(mod, ctr, getattr(mod, ctr) + getattr(self, name))
         replays += 1
         self.n_replays += 1
 

@@ -1,10 +1,12 @@
 """Photon physics step for the torch port (counterpart of
 chroma_tpu.ops.photon), vectorised over the photon batch.
 
-On CUDA tensors a step is the prologue's torch ops and three kernels: K1
-(the geometry query), K3 (the wire walk, on wire-plane geometries) and K2
-(everything after the query, ops.step_kernel). The plain functions here
-are K2's twin (step_kernel.after_query_plain) and the CPU step: every
+On CUDA tensors a step is the uniform blocks' torch ops and four kernel
+launches: K2's k2_pre (the prologue's NaN guard and pruning limit), K1
+(the geometry query), K3 (the wire walk, on wire-plane geometries) and
+K2's k2_post (everything after the query, ops.step_kernel). The plain
+functions here are K2's twins (step_prologue, and
+step_kernel.after_query_plain) and the CPU step: every
 phase -- boundary context (mesh and analytic wire planes), bulk transport
 with reemission, the five surface models, Fresnel boundary -- is computed
 for the whole batch and merged with masks, in the JAX package's order,
@@ -989,9 +991,10 @@ def propagate_at_surface(photons, state, pool, geometry, use_weights=False):
 
 def step_prologue(photons, geometry, pool, use_weights=False, prune=True):
     """The step before the geometry query (reference:
-    chroma/cuda/propagate.cu:300-338): the NaN guard, all of the step's
-    uniform blocks (as many as the step draws, made as DrawPool.draw would
-    make them), and, with pruning, the traversal's distance limit.
+    chroma/cuda/propagate.cu:300-338): all of the step's uniform blocks
+    (as many as the step draws, made as DrawPool.draw would make them),
+    then prologue_after_blocks: the NaN guard and, with pruning, the
+    traversal's distance limit.
 
     With `prune` (and no weights, and CHROMA_PRUNE_TRAVERSAL on), for
     lanes whose medium is tracked (cur_mat >= 0) the absorption and
@@ -1001,17 +1004,24 @@ def step_prologue(photons, geometry, pool, use_weights=False, prune=True):
     chroma_tpu.ops.propagate does. Returns (photons with the NaN-abort
     flags, active lanes, the (B * 8, N) uniform blocks, pruned lanes or
     None, the limit or None)."""
-    alive = photons.alive
+    blocks = pool.stacked(step_kernel.n_draws(geometry))
+    return prologue_after_blocks(
+        photons, geometry, blocks,
+        prune and not use_weights and PRUNE_TRAVERSAL)
 
-    # NaN guard (reference: propagate.cu:307-310)
+
+def prologue_after_blocks(photons, geometry, blocks, prune):
+    """step_prologue after its uniform blocks (K2's k2_pre computes it on
+    the card, step_kernel.launch_pre): the NaN guard (reference:
+    propagate.cu:307-310), the active lanes and, with `prune`, the pruned
+    lanes and the limit from the blocks' streams 0 and 1."""
+    alive = photons.alive
     bad = torch.isnan(photons.dir.sum(dim=-1) + photons.pos.sum(dim=-1))
     nan_abort = alive & bad
     flags = photons.flags | _flag(nan_abort, NO_HIT | NAN_ABORT)
     photons = photons.replace(flags=flags)
     active = alive & ~nan_abort
-
-    blocks = pool.stacked(step_kernel.n_draws(geometry))
-    if not (prune and not use_weights and PRUNE_TRAVERSAL):
+    if not prune:
         return photons, active, blocks, None, None
     mats = geometry.materials
     mrows = wavelength_lerp_rows(mats.props_wl, photons.wavelength,
@@ -1066,14 +1076,16 @@ def propagate_step(photons, geometry, pool, use_weights=False,
     chroma/cuda/propagate.cu:300-338), drawing from the DrawPool `pool`.
     Termination is recorded in the history flags.
 
-    The step is the prologue (step_prologue, torch ops), the geometry
-    query (K1, ops.visit_kernel.traverse), the wire walk on a wire-plane
-    geometry (K3, ops.wire_kernel.walk) and everything after the query
-    (K2, ops.step_kernel.after_query). On CUDA tensors those are one
-    kernel launch each and nothing is read on the host; on the CPU each
-    runs its plain PyTorch twin."""
-    photons, active, blocks, pruned, limit = step_prologue(
-        photons, geometry, pool, use_weights, prune)
+    The step is the prologue (K2's k2_pre after the uniform blocks,
+    ops.step_kernel.before_query), the geometry query (K1,
+    ops.visit_kernel.traverse), the wire walk on a wire-plane geometry
+    (K3, ops.wire_kernel.walk) and everything after the query (K2's
+    k2_post, ops.step_kernel.after_query). On CUDA tensors those are the
+    blocks' uniform_ calls and one kernel launch each, and nothing is read
+    on the host; on the CPU each runs its plain PyTorch twin
+    (step_prologue for k2_pre)."""
+    photons, active, blocks, pruned, limit = step_kernel.before_query(
+        photons, geometry, pool, use_weights, prune, physics=_PHYSICS)
     query = visit_kernel.traverse(
         geometry.wide, photons.pos, photons.dir, photons.last_hit_triangle,
         mask=active, best_limit=limit)[:5]
@@ -1084,10 +1096,11 @@ def propagate_step(photons, geometry, pool, use_weights=False,
                                    physics=_PHYSICS)
 
 
-# what K2 and its plain twin take from this module: the plain functions
-# and the switch (a copy of the module imported with other CHROMA_*
+# what K2 and its plain twins take from this module: the plain functions
+# and the switches (a copy of the module imported with other CHROMA_*
 # switches passes its own)
 _PHYSICS = types.SimpleNamespace(
     wavelength_lerp_rows=wavelength_lerp_rows, medium_props=medium_props,
     decode_state=decode_state, finish_step=finish_step,
-    FORCE_SCATTER_AT_PASS=FORCE_SCATTER_AT_PASS)
+    step_prologue=step_prologue, FORCE_SCATTER_AT_PASS=FORCE_SCATTER_AT_PASS,
+    PRUNE_TRAVERSAL=PRUNE_TRAVERSAL)

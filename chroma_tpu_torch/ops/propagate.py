@@ -278,16 +278,17 @@ def _round_lanes(w):
 # the card the port runs on: a step of width w costs w + SCHED_FLOOR_LANES
 # and a compaction boundary at width w costs SCHED_BOUNDARY_FRAC * w +
 # SCHED_BOUNDARY_LANES. Measured by chip_smoke.py phase 12a on an NVIDIA
-# H100 80GB HBM3 at 700 W with the step of the prologue and K1-K3 (two
-# runs, their mean): graph-replayed quick-detector steps from 2^11 to 2^20
-# lanes fit t = 1.29e-6 ms * w + 0.199 ms (0.185 ms at 2^11, 1.56 ms at
-# 2^20), so SCHED_FLOOR_LANES = 0.199 / 1.29e-6; a boundary (its blocking
-# read, front-pack and lane moves, timed on the host) fits 4.8e-8 and
-# 7.4e-7 ms * w + 1.30 and 1.72 ms, so SCHED_BOUNDARY_FRAC = 3.9e-7 /
-# 1.29e-6 and SCHED_BOUNDARY_LANES = 1.51 / 1.29e-6 (PERF.md section 6).
-SCHED_FLOOR_LANES = 154000
-SCHED_BOUNDARY_FRAC = 0.31
-SCHED_BOUNDARY_LANES = 1168000
+# H100 80GB HBM3 at 700 W with the step of the uniform blocks, k2_pre, K1,
+# K3 and the regrouped k2_post: graph-replayed
+# quick-detector steps from 2^11 to 2^20 lanes fit t = 9.46e-7 ms * w +
+# 0.0733 ms (0.070 ms at 2^11, 1.06 ms at 2^20), so SCHED_FLOOR_LANES =
+# 0.0733 / 9.46e-7; a boundary (its blocking read, front-pack and lane
+# moves, timed on the host) fits 7.86e-8 ms * w + 1.04 ms, so
+# SCHED_BOUNDARY_FRAC = 7.86e-8 / 9.46e-7 and SCHED_BOUNDARY_LANES =
+# 1.04 / 9.46e-7 (PERF.md section 6).
+SCHED_FLOOR_LANES = 77500
+SCHED_BOUNDARY_FRAC = 0.083
+SCHED_BOUNDARY_LANES = 1098000
 SCHED_MAX_STAGES = int(os.environ.get('CHROMA_SCHED_MAX_STAGES', '12'))
 
 
@@ -597,10 +598,12 @@ def _fused_bomb(photons, geometry, seed, schedule, max_steps,
 _SCHED_CACHE = {}
 
 # the perf-cache key of a tuned schedule, by (batch, max_steps). Its
-# version names the step cost the tuner's constants were measured on (k2:
-# a step of the prologue and K1-K3); entries tuned on another cost model
-# (the step of some 2,000 torch ops, key 'sched:') are never read.
-SCHED_KEY = 'sched/k2:%d:%d'
+# version names the step cost the tuner's constants were measured on
+# (k2pre: a step of the uniform blocks, k2_pre, K1, K3 and the regrouped
+# k2_post); entries tuned on another cost model (the step of some 2,000
+# torch ops, key 'sched:'; the prologue's torch ops with the first K2, key
+# 'sched/k2:') are never read.
+SCHED_KEY = 'sched/k2pre:%d:%d'
 
 # per-(geometry, batch) raw probe survival curves (diagnostics)
 _PROBE_COUNTS = {}

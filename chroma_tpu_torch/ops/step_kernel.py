@@ -1,12 +1,20 @@
-"""Wrapper of K2, the step after the geometry query (csrc/step_kernel.cu).
+"""Wrappers of K2, the step around the geometry query
+(csrc/step_kernel.cu): k2_pre before the query, k2_post after it.
 
-Replaces what XLA fuses of the JAX step after the traversal
+k2_post replaces what XLA fuses of the JAX step after the traversal
 (chroma_tpu/ops/photon.py: fill_state's context decode, :201-362, bulk
 transport, the surface models, Fresnel and medium tracking, :437-1085, as
-propagate_step, :1086-1182, runs them): one thread a lane, one launch a
-step, writing the photon fields. Its plain twin is `after_query_plain`,
-built from the port's plain functions (ops.photon) with a DrawPool over
-the given uniforms; the CPU step and the tests run it, no card path does.
+propagate_step, :1086-1182, runs them), one launch a step writing the
+photon fields. A block of B lanes runs the decode and bulk transport a
+thread a lane, then regroups the lanes that reached the boundary by their
+surface model (or Fresnel alone) in shared memory, so that a warp runs
+one model at a time (the kernel source's note). Its plain twin is
+`after_query_plain`, built from the port's plain functions (ops.photon)
+with a DrawPool over the given uniforms; the CPU step and the tests run
+it, no card path does. k2_pre replaces the per-lane work of the step's
+prologue (photon.step_prologue, its plain twin): the NaN guard, the
+active lanes and the pruning limit; the prologue's uniform blocks stay
+torch's `uniform_`, so the Philox stream is the plain step's.
 
 The uniforms. The plain step consumes its DrawPool's streams in a fixed
 order that depends only on which surface models the geometry has and on
@@ -22,9 +30,12 @@ The tables. `tables` packs the geometry's material, surface, instance and
 wire-plane arrays K2 reads into one f32 and one i32 tensor, once per
 geometry and before any capture (ops.cuda_build.geometry_tables).
 
-`after_query` launches K2 for CUDA tensors and runs the plain twin for CPU
-tensors; on a CUDA tensor a failed build or launch raises. `launches`
-counts K2's launches.
+`before_query` and `after_query` launch k2_pre and k2_post for CUDA
+tensors and run the plain twins for CPU tensors; on a CUDA tensor a failed
+build or launch raises. `pre_launches` counts k2_pre's launches and
+`launches` k2_post's; `launch(..., design='thread')` runs k2_post's first
+design (one thread a lane), kept only to time the two against each
+other, and counts in `thread_launches`.
 """
 from __future__ import annotations
 
@@ -46,9 +57,31 @@ from chroma_tpu_torch.ops.types import SURF_REEMISSION_CDF
 SOURCE = os.path.join(cuda_build.CSRC, 'step_kernel.cu')
 BLOCK = 8       # uniform streams a DrawPool block holds
 
-launches = 0
+launches = 0         # k2_post
+pre_launches = 0     # k2_pre
+thread_launches = 0  # k2_post's first design
 build_log = ''
 _lib = None
+
+# k2_post's block: B lanes regrouped together. Wide blocks sort more lanes
+# by model; narrow ones fill more of the card's 132 SMs at narrow widths.
+# chip_smoke.py phase 13 times 64, 128 and 256 at the main paths' widths
+# (NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6): below 2^16
+# lanes 64 was the best or within 10% of it; from 2^16, 256 on the
+# five-model quick-optics detector (0.417 ms at 2^20 lanes against 0.532
+# at 128 and 0.805 at 64) and 128 on the one-model quick detector (0.105
+# against 0.111 at 256). Chosen from the width and the geometry's surface
+# models alone, so a graph and an eager step of one width launch the same
+# blocks.
+BLOCK_NARROW, BLOCK_WIDE, BLOCK_MODELS, WIDE_FROM = 64, 128, 256, 1 << 16
+
+
+def block_for(n, n_models=1):
+    """k2_post's block size at a width of n lanes on a geometry with
+    n_models surface models."""
+    if n < WIDE_FROM:
+        return BLOCK_NARROW
+    return BLOCK_MODELS if n_models > 1 else BLOCK_WIDE
 
 # The plain step's draw sites, in its draw order (csrc/step_kernel.cu's
 # `enum Site`): (name, the group that draws it, the chain of plain
@@ -192,6 +225,23 @@ def after_query(photons, geometry, blocks, active, pruned, query, wires,
                   physics.FORCE_SCATTER_AT_PASS)
 
 
+def before_query(photons, geometry, pool, use_weights=False, prune=True,
+                 physics=photon):
+    """The step before the geometry query, as photon.step_prologue returns
+    it: (photons with the NaN-abort flags, active lanes, the (B * 8, N)
+    uniform blocks, pruned lanes or None, the limit or None). On CUDA
+    tensors the blocks are torch's uniform_ (DrawPool.stacked) and the
+    rest one launch of k2_pre; on CPU tensors physics.step_prologue, the
+    plain twin (`physics` holds it and the switch
+    CHROMA_PRUNE_TRAVERSAL)."""
+    if not photons.pos.is_cuda:
+        return physics.step_prologue(photons, geometry, pool, use_weights,
+                                     prune)
+    blocks = pool.stacked(n_draws(geometry))
+    return launch_pre(photons, geometry, blocks,
+                      prune and not use_weights and physics.PRUNE_TRAVERSAL)
+
+
 # ---------------------------------------------------------------------------
 # the packed tables
 # ---------------------------------------------------------------------------
@@ -308,6 +358,15 @@ class _Args(ctypes.Structure):
                 + [('sites', _I * len(SITES))])
 
 
+class _PreArgs(ctypes.Structure):
+    "csrc/step_kernel.cu's PreArgs, field for field."
+    _fields_ = ([(name, _P) for name in (
+        'pos', 'dir', 'wl', 'flags', 'cur_mat', 'u', 'mat_wl', 'o_flags',
+        'o_active', 'o_pruned', 'o_limit')]
+        + [(name, _I) for name in ('n', 'n_wl', 'n_mat')]
+        + [(name, _F) for name in ('wl0', 'wl_step')])
+
+
 def build():
     """Compile csrc/step_kernel.cu (ops.cuda_build) and load it, with the
     kernel's module loaded now rather than at its first launch (which may
@@ -317,17 +376,29 @@ def build():
     if _lib is not None:
         return _lib
     lib, build_log = cuda_build.build(SOURCE)
-    lib.chroma_step.argtypes = [_Args, _P]
-    lib.chroma_step.restype = _I
-    lib.chroma_step_load.restype = _I
-    lib.chroma_step_args_size.restype = _I
-    if lib.chroma_step_args_size() != ctypes.sizeof(_Args):
-        raise RuntimeError('StepArgs is %d bytes in the library, %d here'
-                           % (lib.chroma_step_args_size(),
-                              ctypes.sizeof(_Args)))
+    bind(lib)
     cuda_build.check_launch(lib.chroma_step_load(), 'step kernel load')
     _lib = lib
     return lib
+
+
+def bind(lib):
+    """Set the C entry points' argument types on `lib` (a build of
+    csrc/step_kernel.cu); raises RuntimeError if its argument structs
+    differ from _Args and _PreArgs."""
+    lib.chroma_step.argtypes = [_Args, _I, _P]
+    lib.chroma_step_thread.argtypes = [_Args, _P]
+    lib.chroma_step_pre.argtypes = [_PreArgs, _P]
+    for fn in (lib.chroma_step, lib.chroma_step_thread, lib.chroma_step_pre,
+               lib.chroma_step_load, lib.chroma_step_args_size,
+               lib.chroma_step_pre_args_size):
+        fn.restype = _I
+    for name, size, struct in (
+            ('StepArgs', lib.chroma_step_args_size(), _Args),
+            ('PreArgs', lib.chroma_step_pre_args_size(), _PreArgs)):
+        if size != ctypes.sizeof(struct):
+            raise RuntimeError('%s is %d bytes in the library, %d here'
+                               % (name, size, ctypes.sizeof(struct)))
 
 
 def _lane(name, t, dtype, shape, dev):
@@ -344,11 +415,17 @@ def _as_f32(x):
 
 
 def launch(photons, geometry, blocks, active, pruned, query, wires,
-           use_weights=False, scatter_first=0, force_scatter=None):
-    """One launch of K2 on CUDA tensors (arguments as after_query_plain's;
-    force_scatter: CHROMA_FORCE_SCATTER_AT_PASS, ops.photon's when None);
-    returns the new PhotonState and counts in `launches`."""
-    global launches
+           use_weights=False, scatter_first=0, force_scatter=None,
+           block=None, design='regrouped'):
+    """One launch of k2_post on CUDA tensors (arguments as
+    after_query_plain's; force_scatter: CHROMA_FORCE_SCATTER_AT_PASS,
+    ops.photon's when None; block: lanes a block, block_for(N, models)
+    when None); returns the new PhotonState and counts in `launches`.
+    `design='thread'` launches the first design (one thread a lane; no
+    block) and counts in `thread_launches`."""
+    global launches, thread_launches
+    if design not in ('regrouped', 'thread'):
+        raise ValueError('design: regrouped or thread, got %r' % (design,))
     n = len(photons)
     dev = photons.pos.device
     sites, total = _sites_of(geometry)
@@ -368,14 +445,15 @@ def launch(photons, geometry, blocks, active, pruned, query, wires,
                flags=(photons.flags, i32, (n,)),
                lht=(photons.last_hit_triangle, i32, (n,)),
                cur_mat=(photons.cur_mat, i32, (n,)),
-               active=(active.to(u8), u8, (n,)),
+               active=(cuda_build.mask_bytes(active, n, dev), u8, (n,)),
                u=(blocks, f32, tuple(blocks.shape)))
     tri, dist, code, nvec, iid = query
     ins.update(tri=(tri, i32, (n,)), dist=(dist, f32, (n,)),
                code=(code, i32, (n,)), nvec=(nvec, f32, (n, 3)),
                iid=(iid, i32, (n,)))
     if pruned is not None:
-        ins['pruned'] = (pruned.to(u8), u8, (n,))
+        ins['pruned'] = (cuda_build.mask_bytes(pruned, n, dev, 'pruned'),
+                         u8, (n,))
     if wires is not None:
         w_t, w_plane, w_vn, w_nn = wires
         ins.update(w_t=(w_t, f32, (n,)), w_plane=(w_plane, i32, (n,)),
@@ -416,7 +494,60 @@ def launch(photons, geometry, blocks, active, pruned, query, wires,
 
     lib = build()
     with torch.cuda.device(dev):
-        err = lib.chroma_step(a, torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if design == 'thread':
+            err = lib.chroma_step_thread(a, stream)
+        else:
+            if block is None:
+                block = block_for(n, len(s.models_present))
+            err = lib.chroma_step(a, block, stream)
     cuda_build.check_launch(err, 'step kernel')
-    launches += 1
+    if design == 'thread':
+        thread_launches += 1
+    else:
+        launches += 1
     return out
+
+
+def launch_pre(photons, geometry, blocks, prune):
+    """One launch of k2_pre on CUDA tensors: the prologue's NaN guard,
+    active lanes and (with `prune`) pruned lanes and limit, from the
+    step's uniform blocks (streams 0 and 1: the absorption and scattering
+    draws). Returns step_prologue's tuple; counts in `pre_launches`."""
+    global pre_launches
+    n = len(photons)
+    dev = photons.pos.device
+    mats = geometry.materials
+    if blocks.dim() != 2 or blocks.shape[1] != n or blocks.shape[0] < 2:
+        raise ValueError('blocks: want (>= 2, %d), got %s'
+                         % (n, tuple(blocks.shape)))
+    f32, i32 = torch.float32, torch.int32
+    a = _PreArgs()
+    for name, t, dtype, shape in (
+            ('pos', photons.pos, f32, (n, 3)),
+            ('dir', photons.dir, f32, (n, 3)),
+            ('wl', photons.wavelength, f32, (n,)),
+            ('flags', photons.flags, i32, (n,)),
+            ('cur_mat', photons.cur_mat, i32, (n,)),
+            ('u', blocks, f32, tuple(blocks.shape)),
+            ('mat_wl', mats.props_wl, f32, tuple(mats.props_wl.shape))):
+        setattr(a, name, _lane(name, t, dtype, shape, dev))
+    flags = torch.empty_like(photons.flags)
+    active = torch.empty(n, dtype=torch.bool, device=dev)
+    pruned = limit = None
+    a.o_flags, a.o_active = flags.data_ptr(), active.data_ptr()
+    if prune:
+        pruned = torch.empty(n, dtype=torch.bool, device=dev)
+        limit = torch.empty(n, dtype=f32, device=dev)
+        a.o_pruned, a.o_limit = pruned.data_ptr(), limit.data_ptr()
+    a.n = n
+    a.n_wl, a.n_mat = mats.n_wavelength, mats.props_wl.shape[1]
+    a.wl0, a.wl_step = _as_f32(mats.wavelength0), _as_f32(
+        mats.wavelength_step)
+    lib = build()
+    with torch.cuda.device(dev):
+        err = lib.chroma_step_pre(a, torch.cuda.current_stream(dev)
+                                  .cuda_stream)
+    cuda_build.check_launch(err, 'step prologue kernel')
+    pre_launches += 1
+    return photons.replace(flags=flags), active, blocks, pruned, limit

@@ -97,8 +97,7 @@ def _query(inst, origin, direction, last_hit, mask, best_limit, by_kind,
     if last_hit is not None:
         _check('last_hit', last_hit, torch.int32, (n,), dev)
     if mask is not None:
-        mask = mask.to(torch.uint8)
-        _check('mask', mask, torch.uint8, (n,), dev)
+        mask = cuda_build.mask_bytes(mask, n, dev, 'mask')
     if best_limit is not None:
         _check('best_limit', best_limit, torch.float32, (n,), dev)
 

@@ -1,20 +1,25 @@
-"""Wrapper of K3, the per-lane wire walk (csrc/wire_walk.cu).
+"""Wrapper of K3, the wire walk (csrc/wire_walk.cu).
 
 Replaces the device lax.while_loop of chroma_tpu/ops/wireplane.py
 (`_intersect_one_plane`, :118-174, called per plane by
 `intersect_wireplanes`, :177-197), which XLA runs on the device in
-lockstep over the batch's widest candidate-wire window. Here one thread a
-lane walks every plane, and within a plane its own window [k_lo, k_hi]
-(capped at MAX_WINDOW wires beyond the first), keeping the nearest hit
-with the same strict `t < best` test in ascending k and plane order, so
-ties resolve as the lockstep loop resolves them. The window set-up
-(wireplane._plane_window) is in the kernel too, with fmaf exactly where
-the plain code calls linalg.fma. Nothing is read on the host, so a CUDA
-graph captures the step of a wire-plane geometry.
+lockstep over the batch's widest candidate-wire window. Here a warp takes
+32 rays: each lane sets up its own ray's window [k_lo, k_hi] on every
+plane (capped at MAX_WINDOW wires beyond the first), and the warp walks
+the 32 rays' candidate wires together, 32 at a time, keeping each (ray,
+plane)'s nearest hit with the plain loop's tie rule (the smallest k wins
+a tie) and then each ray's nearest plane in plane order, so the result is
+walk_plain's bit for bit. The window set-up (wireplane._plane_window) is
+in the kernel too, with fmaf exactly where the plain code calls
+linalg.fma. Nothing is read on the host, so a CUDA graph captures the
+step of a wire-plane geometry.
 
 `walk` launches K3 for CUDA tensors and runs the plain twin
 (wireplane.walk_plain) for CPU tensors; on a CUDA tensor a failed build
-or launch raises. `launches` counts K3's launches.
+or launch raises. `launches` counts K3's launches. `launch_thread`
+launches the first design (one thread a lane, each over its own windows),
+kept only to time the two against each other; it counts in
+`thread_launches`.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ PLANE_WORDS = 19    # origin, u, v, w (3 each), pitch, radius, umin, umax,
                     # vmin, vmax, v0
 
 launches = 0
+thread_launches = 0
 build_log = ''
 _lib = None
 
@@ -42,14 +48,21 @@ def build():
     if _lib is not None:
         return _lib
     lib, build_log = cuda_build.build(SOURCE)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.chroma_wire_walk.argtypes = [p, p, p, p, i, i, p, p, p, p, p]
-    lib.chroma_wire_walk.restype = ctypes.c_int
-    lib.chroma_wire_walk_load.argtypes = []
-    lib.chroma_wire_walk_load.restype = ctypes.c_int
+    bind(lib)
     cuda_build.check_launch(lib.chroma_wire_walk_load(), 'wire walk load')
     _lib = lib
     return lib
+
+
+def bind(lib):
+    "Set the C entry points' argument types on `lib`, a build of SOURCE."
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.chroma_wire_walk, lib.chroma_wire_walk_thread):
+        fn.argtypes = [p, p, p, p, i, i, p, p, p, p, p]
+        fn.restype = i
+    for fn in (lib.chroma_wire_walk_load, lib.chroma_wire_walk_max_planes):
+        fn.argtypes = []
+        fn.restype = i
 
 
 def _pack_planes(geometry):
@@ -74,10 +87,11 @@ def walk(pos, direction, geometry, active):
     return launch(pos, direction, planes(geometry), active)
 
 
-def launch(pos, direction, plane_table, active):
+def launch(pos, direction, plane_table, active, design='warp'):
     """One launch of K3 on CUDA tensors (pos, direction (N, 3) f32,
-    active (N,) bool or None); counts in `launches`."""
-    global launches
+    active (N,) bool or None); counts in `launches` (`design='thread'`:
+    the first design, counted in `thread_launches`)."""
+    global launches, thread_launches
     n = pos.shape[0]
     dev = pos.device
     for name, t, shape in (('pos', pos, (n, 3)),
@@ -89,23 +103,32 @@ def launch(pos, direction, plane_table, active):
     if plane_table.device != dev or plane_table.shape[1] != PLANE_WORDS:
         raise ValueError('plane table must be (P, %d) on %s'
                          % (PLANE_WORDS, dev))
-    mask = None
-    if active is not None:
-        mask = active.to(torch.uint8).contiguous()
-        if tuple(mask.shape) != (n,) or mask.device != dev:
-            raise ValueError('active: want (%d,) on %s' % (n, dev))
+    lib = build()
+    if plane_table.shape[0] > lib.chroma_wire_walk_max_planes():
+        raise ValueError('%d wire planes: the warp walk takes at most %d'
+                         % (plane_table.shape[0],
+                            lib.chroma_wire_walk_max_planes()))
+    mask = None if active is None else cuda_build.mask_bytes(active, n,
+                                                              dev)
     best_t = torch.empty(n, dtype=torch.float32, device=dev)
     best_plane = torch.empty(n, dtype=torch.int32, device=dev)
     best_vn = torch.empty(n, dtype=torch.float32, device=dev)
     best_nn = torch.empty(n, dtype=torch.float32, device=dev)
-    lib = build()
+    fns = {'warp': lib.chroma_wire_walk,
+           'thread': lib.chroma_wire_walk_thread}
+    if design not in fns:
+        raise ValueError('design: warp or thread, got %r' % (design,))
+    fn = fns[design]
     with torch.cuda.device(dev):
-        err = lib.chroma_wire_walk(
-            pos.data_ptr(), direction.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            plane_table.data_ptr(), plane_table.shape[0], n,
-            best_t.data_ptr(), best_plane.data_ptr(), best_vn.data_ptr(),
-            best_nn.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(pos.data_ptr(), direction.data_ptr(),
+                 None if mask is None else mask.data_ptr(),
+                 plane_table.data_ptr(), plane_table.shape[0], n,
+                 best_t.data_ptr(), best_plane.data_ptr(), best_vn.data_ptr(),
+                 best_nn.data_ptr(), stream)
     cuda_build.check_launch(err, 'wire walk')
-    launches += 1
+    if design == 'warp':
+        launches += 1
+    else:
+        thread_launches += 1
     return best_t, best_plane, best_vn, best_nn

@@ -482,13 +482,17 @@ def test_replay_adds_the_captured_k1_launches(cuda):
     from chroma_tpu_torch.ops import step_kernel
     before = visit_kernel.launches
     before2 = step_kernel.launches
+    before_pre = step_kernel.pre_launches
     g = graphs.StepGraph(ga, state, False, 0, True)
     assert visit_kernel.launches == before and g.k1 == 1
     assert step_kernel.launches == before2 and g.k2 == 1 and g.k3 == 0
+    assert step_kernel.pre_launches == before_pre and g.k2_pre == 1
     for step in range(3):
         g.replay(4, step)
         assert visit_kernel.launches == before + g.k1 * (step + 1)
         assert step_kernel.launches == before2 + g.k2 * (step + 1)
+        assert step_kernel.pre_launches == before_pre + g.k2_pre * (step
+                                                                   + 1)
     torch.cuda.synchronize()
     assert g.n_replays == 3
 
@@ -736,24 +740,27 @@ def test_wire_kernel_matches_plain(cuda):
 def test_wire_plane_replay_matches_eager(cuda):
     """The fused bomb on a wire-plane geometry takes the graph route: with
     graph replays and with every step eager, same seed, every field equal
-    bit for bit; K3 and K2 launched once a step either way."""
+    bit for bit; K1, K3 and K2's k2_pre and k2_post launched once a step
+    either way."""
     from chroma_tpu_torch.ops import graphs, step_kernel, wire_kernel
     from chroma_tpu_torch.ops import propagate as P
     ga = build_geometry_arrays(_optics_box()).to(cuda)
     state = _device_bomb(1 << 15, 13, cuda)
     sched = ((1, 2), (2, 2), (4, 2))
     out = {}
+    def counters():
+        return (visit_kernel.launches, step_kernel.launches,
+                step_kernel.pre_launches, wire_kernel.launches,
+                graphs.replays, graphs.captures)
     for use_graphs in (False, True):
-        counts = (visit_kernel.launches, step_kernel.launches,
-                  wire_kernel.launches, graphs.replays, graphs.captures)
+        counts = counters()
         res, _, abort = P._fused_bomb(state, ga, (9, 3), sched, 100,
                                       use_graphs=use_graphs)
         torch.cuda.synchronize()
         assert not abort
-        k1, k2, k3, r, c = (now - then for now, then in zip(
-            (visit_kernel.launches, step_kernel.launches,
-             wire_kernel.launches, graphs.replays, graphs.captures), counts))
-        assert k1 == k2 == k3 > 0
+        k1, k2, k2_pre, k3, r, c = (now - then for now, then in zip(
+            counters(), counts))
+        assert k1 == k2 == k2_pre == k3 > 0
         out[use_graphs] = res
         if use_graphs:
             assert r > 0 and c > 0 and k1 == r + c
@@ -762,3 +769,174 @@ def test_wire_plane_replay_matches_eager(cuda):
     for name in FUSED_FIELDS:
         assert torch.equal(getattr(out[True], name),
                            getattr(out[False], name)), name
+
+
+def _prologue_state(ga, cuda, n=1 << 15):
+    """A bomb after two card steps (media known, so lanes prune), with
+    NaN positions or directions on some alive lanes and some lanes
+    finished: what a step's prologue meets."""
+    from chroma_tpu_torch.ops import photon
+    from chroma_tpu_torch.ops.sample import DrawPool, make_generator
+    state = _device_bomb(n, 14, cuda)
+    for s in range(2):
+        state = photon.propagate_step(state, ga, DrawPool(
+            n, cuda, generator=make_generator(cuda, 15, s)))
+    pos, d = state.pos.clone(), state.dir.clone()
+    pos[7::97, 1] = float('nan')
+    d[11::101, 2] = float('nan')
+    d[13::103] = torch.tensor([float('inf'), float('-inf'), 0.0])
+    flags = state.flags.clone()
+    flags[5::89] |= photon.i32(event.NO_HIT)
+    return state.replace(pos=pos, dir=d, flags=flags)
+
+
+def _assert_prologue_equal(got, ref):
+    """k2_pre's step_prologue tuple against the plain one: flags, active
+    and pruned lanes equal, limits equal (inf where unpruned)."""
+    ph, active, blocks, pruned, limit = got
+    rph, ractive, rblocks, rpruned, rlimit = ref
+    assert torch.equal(blocks, rblocks)
+    assert torch.equal(ph.flags, rph.flags)
+    assert torch.equal(active, ractive) and active.dtype == torch.bool
+    assert (pruned is None) == (rpruned is None)
+    if rpruned is not None:
+        assert torch.equal(pruned, rpruned) and int(pruned.sum()) > 0
+        torch.testing.assert_close(limit, rlimit, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['tiny', 'optics', 'optics-no-prune',
+                                  'optics-weights'])
+def test_step_prologue_kernel_matches_plain(cuda, case):
+    """k2_pre (step_kernel.before_query on the card: the uniform blocks
+    and one launch) against photon.step_prologue on the same lanes and
+    generator: the NaN guard's flags, the active and pruned lanes and the
+    pruning limit; no pruning under weights or prune=False."""
+    from chroma_tpu_torch.ops import photon, step_kernel
+    from chroma_tpu_torch.ops.sample import DrawPool, make_generator
+    ga = _tiny_on(cuda) if case == 'tiny' else \
+        build_geometry_arrays(_optics_box()).to(cuda)
+    state = _prologue_state(ga, cuda)
+    opts = {'optics-no-prune': dict(prune=False),
+            'optics-weights': dict(use_weights=True)}.get(case, {})
+
+    def pool():
+        return DrawPool(len(state), cuda,
+                        generator=make_generator(cuda, 16))
+    before = step_kernel.pre_launches
+    got = step_kernel.before_query(state, ga, pool(), **opts)
+    assert step_kernel.pre_launches == before + 1
+    ref = photon.step_prologue(state, ga, pool(), **opts)
+    torch.cuda.synchronize()
+    _assert_prologue_equal(got, ref)
+    assert (got[3] is None) == bool(opts)
+    nan_abort = (got[0].flags & photon.i32(event.NAN_ABORT)) != 0
+    assert int(nan_abort.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('block', [32, 64, 128, 256])
+@pytest.mark.parametrize('n', [1 << 15, 30001])
+def test_step_kernel_blocks_match_plain(cuda, block, n):
+    """k2_post at each block size, at a width that is a multiple of every
+    block and at an odd one, against its plain twin and bit for bit
+    against the first design (one thread a lane) on the all-models box
+    (every surface model, Fresnel alone, reemission and a wire plane)."""
+    from chroma_tpu_torch.ops import step_kernel
+    ga = build_geometry_arrays(_optics_box()).to(cuda)
+    state = _device_bomb(n, 17, cuda)
+    ph, active, blocks, pruned, query, wires = _step_inputs(ga, state,
+                                                            (18,))
+    args = (ph, ga, blocks, active, pruned, query, wires)
+    before = step_kernel.launches, step_kernel.thread_launches
+    got = step_kernel.launch(*args, block=block)
+    first = step_kernel.launch(*args, design='thread')
+    assert (step_kernel.launches, step_kernel.thread_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = step_kernel.after_query_plain(*args)
+    torch.cuda.synchronize()
+    for name in FUSED_FIELDS:
+        assert torch.equal(getattr(got, name), getattr(first, name)), name
+    _lanes_agree(got, ref)
+
+
+def _tie_box():
+    """Three wire planes where two coincide (same origin and wires: every
+    hit on the first ties with the second) and a third turned 60 degrees,
+    1 mm above them: the ties between planes."""
+    from chroma_tpu_torch.geometry import WirePlane
+    absorber = Surface('absorber')
+    absorber.set('absorb', 1.0)
+    geo = Geometry(vacuum)
+    geo.add_solid(Solid(box(2000.0, 2000.0, 2000.0), water, vacuum,
+                        surface=absorber))
+    for z, deg in ((0.0, 0.0), (0.0, 0.0), (1.0, 60.0)):
+        a = np.radians(deg)
+        geo.add_wireplane(WirePlane(
+            origin=(0.0, 0.0, z), u=(np.cos(a), np.sin(a), 0.0),
+            v=(-np.sin(a), np.cos(a), 0.0), pitch=3.0, radius=0.15,
+            umin=-500, umax=500, vmin=-500, vmax=500, surface=absorber,
+            material_inner=glass, material_outer=water))
+    geo.flatten()
+    return geo
+
+
+def tie_rays(n, seed):
+    """Rays at the planes of _tie_box: a third aimed exactly at a wire's
+    axis (x along the wire, y = 3 k, z = 0) from below, a third starting on
+    a wire's axis (inside it), the rest from random points below, some
+    grazing; (pos, dir, active) as float32 numpy arrays and a bool mask."""
+    rs = np.random.RandomState(seed)
+    k = rs.randint(-100, 100, n).astype(np.float64)
+    target = np.column_stack([rs.uniform(-400, 400, n), 3.0 * k,
+                              np.zeros(n)])
+    pos = np.column_stack([rs.uniform(-400, 400, (n, 2)),
+                           rs.uniform(-60, -1, n)])
+    third = n // 3
+    pos[third:2 * third] = target[third:2 * third]
+    d = target - pos
+    d[third:2 * third] = rs.randn(third, 3)
+    d[2 * third:] = rs.randn(n - 2 * third, 3)
+    d[2 * third::7, 2] = 1e-12                   # grazing
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (pos.astype(np.float32), d.astype(np.float32),
+            rs.uniform(size=n) > 0.05)
+
+
+@pytest.mark.cuda
+def test_wire_kernel_ties_match_plain(cuda):
+    """K3 (the warp's walk) against walk_plain and the first design on
+    rays that force ties: hits on two coinciding planes (the first plane
+    keeps them), rays through a wire's axis and rays starting inside a
+    wire: planes, distances and coordinates equal bit for bit."""
+    from chroma_tpu_torch.ops import wire_kernel, wireplane
+    ga = build_geometry_arrays(_tie_box()).to(cuda)
+    pos, d, active = (torch.from_numpy(x).to(cuda)
+                      for x in tie_rays(30001, 19))
+    got = wire_kernel.walk(pos, d, ga, active)
+    first = wire_kernel.launch(pos, d, wire_kernel.planes(ga), active,
+                               design='thread')
+    ref = wireplane.walk_plain(pos, d, ga, active)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, first, ref):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    planes = ref[1].cpu().numpy()
+    assert (planes == 0).sum() > 1000 and (planes == 2).sum() > 100
+    assert (planes == 1).sum() == 0     # the coinciding plane never wins
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_reject_bad_masks(cuda):
+    """The wrappers take bool (or u8) masks as they are and raise on
+    another dtype, shape or a non-contiguous mask."""
+    from chroma_tpu_torch.ops import wire_kernel
+    ga = build_geometry_arrays(_tie_box()).to(cuda)
+    pos, d, active = (torch.from_numpy(x).to(cuda)
+                      for x in tie_rays(256, 20))
+    table = wire_kernel.planes(ga)
+    for bad in (active.float(), active[:128],
+                torch.stack([active, active], 1)[:, 0]):
+        with pytest.raises(ValueError):
+            wire_kernel.launch(pos, d, table, bad)
+    got = wire_kernel.launch(pos, d, table, active.to(torch.uint8))
+    assert torch.equal(got[1], wire_kernel.launch(pos, d, table, active)[1])
