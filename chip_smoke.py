@@ -2,10 +2,6 @@
 """Smoke run of the PyTorch / CUDA port (chroma_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # from the repository root
-    python3 chip_smoke.py --profile FILE   # also profile the quick,
-                                          # quick-optics, likelihood and
-                                          # render paths, full tables to
-                                          # FILE
     python3 chip_smoke.py --out DIR        # keep phase 10's PNG frames in
                                           # DIR (else they go with the
                                           # scratch files)
@@ -681,17 +677,23 @@ def graph_cache(geometry):
 def path_widths(geometry):
     """Within the block, the widths of the steps run on `geometry`: the
     rays of each eager visit-kernel query (launch_rays) and of each graph
-    replay (the graphs' replay counts). Yields a dict that holds, after the
-    block, 'eager' and 'replayed' Counters (lanes -> steps) and 'all',
-    their sum."""
-    before = {k: g.n_replays for k, g in graph_cache(geometry).items()}
+    replay (counted by wrapping StepGraph.replay). Yields a dict that
+    holds, after the block, 'eager' and 'replayed' Counters (lanes ->
+    steps) and 'all', their sum."""
+    from chroma_tpu_torch.ops import graphs
+    replayed = collections.Counter()
+    replay = graphs.StepGraph.replay
+
+    def counted(graph, *seed):
+        replayed[len(graph.state)] += 1
+        return replay(graph, *seed)
+    graphs.StepGraph.replay = counted
     out = {}
-    with launch_rays() as sizes:
-        yield out
-    replayed = collections.Counter({
-        k[0]: g.n_replays - before.get(k, 0)
-        for k, g in graph_cache(geometry).items()
-        if g.n_replays > before.get(k, 0)})
+    try:
+        with launch_rays() as sizes:
+            yield out
+    finally:
+        graphs.StepGraph.replay = replay
     out.update(eager=sizes, replayed=replayed, all=sizes + replayed)
 
 
@@ -1612,16 +1614,6 @@ def phase_camera_rays(quick_geo, table, device, card):
                 bound_ms=bound, bound_by=by), err
 
 
-def render_frames(quick_geo, quick_dev, device):
-    "N_FRAMES frames of phase 10c, each down to its host image."
-    from chroma_tpu_torch.camera import _pixels_to_image, _scene_pose
-    pose, _, center = _scene_pose(quick_geo)
-    rays = pose.rays(RENDER_SIZE, device=device)
-    for _ in range(N_FRAMES):
-        _pixels_to_image(rays.render(quick_dev, ALPHA_DEPTH), RENDER_SIZE)
-        rays.rotate_around_point(0.05, (0.0, 0.0, 1.0), center)
-
-
 def phase_render(quick_geo, quick, quick_dev, device, card, out_dir):
     """Phase 10b: render and distances, card against CPU; 10c: frames at
     full width. Returns (K1 launches of 10c's frames, median wall a frame,
@@ -2116,22 +2108,25 @@ MANY_EVENTS = 32             # phase 12f's likelihood events
 
 
 def fused_counters():
-    "Zero the counters of the fused route (K1-K3, graphs, host reads)."
-    from chroma_tpu_torch.ops import graphs
-    from chroma_tpu_torch.ops import propagate as P
+    """Zero the counters of the fused route (K1-K3 launches; the
+    profiler's graph and host-read counters) and enable the profiler."""
+    from chroma_tpu_torch.profiler import profiler
     zero_launches()
-    graphs.captures, graphs.capture_s, graphs.replays = 0, 0.0, 0
-    P.blocking_reads = P.throttle_waits = 0
+    profiler.reset()
+    profiler.enabled = True
 
 
 def fused_stats():
-    "The counters fused_counters zeroed, read."
-    from chroma_tpu_torch.ops import graphs
-    from chroma_tpu_torch.ops import propagate as P
-    return dict(launches=launches_now(), captures=graphs.captures,
-                capture_s=graphs.capture_s, replays=graphs.replays,
-                blocking_reads=P.blocking_reads,
-                throttle_waits=P.throttle_waits)
+    "The counters fused_counters zeroed, read; the profiler disabled."
+    from chroma_tpu_torch.profiler import profiler
+    profiler.enabled = False
+    c = profiler.counters
+    capture = profiler.regions.get('graphs.capture')
+    return dict(launches=launches_now(), captures=c['graphs.captures'],
+                capture_s=capture.total if capture else 0.0,
+                replays=c['graphs.replays'],
+                blocking_reads=c['propagate.blocking_reads'],
+                throttle_waits=c['propagate.throttle_waits'])
 
 
 def check_fused(stats, schedule):
@@ -2886,8 +2881,6 @@ def main(argv, work):
     # the port itself; in a directory without the repository this fails
     import chroma_tpu_torch
     from chroma_tpu_torch.ops import mesh_wide, visit_kernel
-    profile = argv[argv.index('--profile') + 1] \
-        if '--profile' in argv else None
     out_dir = os.path.abspath(argv[argv.index('--out') + 1]) \
         if '--out' in argv else os.path.join(work, 'frames')
     os.makedirs(out_dir, exist_ok=True)
@@ -3048,21 +3041,6 @@ def main(argv, work):
          ('lartpc-wires', lartpc_ga, (0.0, 0.0, -300.0), {}, 0)],
         lartpc_ga, device, card)
 
-    if profile:
-        profile_run('quick (fused)', lambda: run_main_path(sim, N_BOMB, 7),
-                    card, profile)
-        os.environ['CHROMA_FUSED'] = '0'
-        profile_run('quick (chunked)', lambda: run_main_path(sim, N_BOMB, 7),
-                    card, profile)
-        os.environ.pop('CHROMA_FUSED')
-        profile_run('quick-optics (fused)',
-                    lambda: run_main_path(sim6, N_BOMB, 7), card, profile)
-        nevals, nreps, ndaq = LIKELIHOOD
-        profile_run('likelihood eval (fused)', lambda: lk.eval(
-            likelihood_gun(19), nevals, nreps=nreps, ndaq=ndaq), card,
-            profile)
-        profile_run('render frames', lambda: render_frames(
-            quick_geo, quick_dev, device), card, profile)
     per_phase = {'5 quick': launches, '6 quick-optics': launches6,
                  **launches7, '8 likelihood': launches8,
                  '9b device source': launches9b, '9c facade': launches9c,
@@ -3199,47 +3177,6 @@ def kernel_row(name, source, replaces, launches, per_path, twin, times,
             'main_path_loss_ms': {k: v[0] for k, v in losses.items()},
             'by_lanes': {str(w): t for w, t in times.items()}}
 
-
-def profile_run(label, fn, card, path):
-    """Device time by kernel over one run of fn() (torch.profiler); the
-    full table is appended to `path`. Logs wall, device busy time, K1's,
-    K2's and K3's shares and the device's idle share."""
-    import torch
-    from torch.profiler import profile, ProfilerActivity
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    table = prof.key_averages().table(sort_by='cuda_time_total',
-                                      row_limit=40)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, 'a') as fh:
-        fh.write('== %s\n%s\nwall %.3f s (profiled)\n%s\n' % (
-            label, card, wall, table))
-    # device-side rows only (kernels, copies): the aten rows repeat them
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in events) / 1e6
-    shares = {name: sum(e.self_device_time_total for e in events
-                        if key in e.key) / 1e6
-              for name, key in (('K1', 'visit_warp_kernel'),
-                                ('k2_pre', 'pre_kernel'),
-                                ('k2_post', 'step_kernel'),
-                                ('K3', 'wire_walk_kernel'))}
-    cpu_ops = sum(e.count for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CPU
-                  and e.key.startswith('aten::'))
-    log('profile %s: wall %.3f s profiled, device busy %.3f s (idle %.1f%%)'
-        ', %s, %d aten ops; top rows:' % (
-            label, wall, total, 100.0 * (1 - total / wall), ', '.join(
-                '%s %.3f s (%.1f%% of device time)' % (
-                    name, t, 100.0 * t / max(total, 1e-9))
-                for name, t in shares.items()), cpu_ops))
-    for line in table.splitlines()[:12]:
-        log('  ' + line)
 
 if __name__ == '__main__':
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as workdir:

@@ -42,6 +42,7 @@ from chroma_tpu_torch.ops.render import (hybrid_render, pixels_to_host,
 from chroma_tpu_torch.ops.transform import (rotate_around_point,
                                             rotate_points, translate_points)
 from chroma_tpu_torch.ops.types import build_geometry_arrays
+from chroma_tpu_torch.profiler import profiler
 from chroma_tpu_torch.tools import from_film
 
 FILM_WIDTH = 35.0
@@ -120,12 +121,13 @@ class CameraPose(object):
 
     def rays(self, size, eye_shift=0.0, device='cuda'):
         "Per-pixel ray bundle for this pose (optionally shifted for stereo)."
-        pos = self.position + eye_shift * self.axis2
-        origins, directions = from_film(pos, axis1=self.axis1,
-                                        axis2=self.axis2, size=size,
-                                        width=FILM_WIDTH,
-                                        focal_length=FOCAL_LENGTH)
-        return Rays(origins, directions, device)
+        with profiler.region('camera.rays'):
+            pos = self.position + eye_shift * self.axis2
+            origins, directions = from_film(pos, axis1=self.axis1,
+                                            axis2=self.axis2, size=size,
+                                            width=FILM_WIDTH,
+                                            focal_length=FOCAL_LENGTH)
+            return Rays(origins, directions, device)
 
     def project(self, points, size):
         """Project world points to pixel coordinates. Returns
@@ -150,23 +152,26 @@ class CameraPose(object):
 def _pixels_to_image(pixels, size):
     """ARGB pixels (N,), a device tensor of int32 bit patterns or a host
     uint32 array -> (height, width, 3) uint8 RGB image."""
-    if isinstance(pixels, torch.Tensor):
-        pixels = pixels_to_host(pixels)
-    pixels = np.asarray(pixels, dtype=np.uint32).reshape(size[0], size[1]).T
-    img = np.empty(pixels.shape + (3,), dtype=np.uint8)
-    img[..., 0] = (pixels >> 16) & 0xFF
-    img[..., 1] = (pixels >> 8) & 0xFF
-    img[..., 2] = pixels & 0xFF
-    return img
+    with profiler.region('camera.pixels'):
+        if isinstance(pixels, torch.Tensor):
+            pixels = pixels_to_host(pixels)
+        pixels = np.asarray(pixels, dtype=np.uint32).reshape(size[0],
+                                                             size[1]).T
+        img = np.empty(pixels.shape + (3,), dtype=np.uint8)
+        img[..., 0] = (pixels >> 16) & 0xFF
+        img[..., 1] = (pixels >> 8) & 0xFF
+        img[..., 2] = pixels & 0xFF
+        return img
 
 
 def _scene_pose(geometry):
-    lower, upper = geometry.mesh.get_bounds()
-    scale = float(np.linalg.norm(upper - lower))
-    center = (upper + lower) / 2.0
-    pose = CameraPose(center - np.array([0.0, scale, 0.0]),
-                      axis1=(0, 0, 1), axis2=(1, 0, 0))
-    return pose, scale, center
+    with profiler.region('camera.pose'):
+        lower, upper = geometry.mesh.get_bounds()
+        scale = float(np.linalg.norm(upper - lower))
+        center = (upper + lower) / 2.0
+        pose = CameraPose(center - np.array([0.0, scale, 0.0]),
+                          axis1=(0, 0, 1), axis2=(1, 0, 0))
+        return pose, scale, center
 
 
 def _arrays_on(geometry, geometry_arrays, device):

@@ -18,6 +18,7 @@ from chroma_tpu_torch import event
 from chroma_tpu_torch.event import SURFACE_DETECT
 from chroma_tpu_torch.ops.photon import i32
 from chroma_tpu_torch.ops.sample import sample_cdf_pairs, uniform
+from chroma_tpu_torch.profiler import profiler
 
 MAX_TIME = 1e9      # "no hit" earliest-time sentinel
 HIT_TIME_CUT = 1e8  # a channel is hit if its earliest time is below this
@@ -104,38 +105,42 @@ def run_daq(photons, geometry, generator=None, ndaq=1, uniforms=None,
     `generator`, or from `uniforms(block, site, shape)` -- U[0, 1) arrays,
     site 0 keep, 1 time, 2 charge -- when injected. Returns ChannelArrays
     with leading dimension ndaq*C, replica-major."""
-    det = geometry.detector
-    dev = photons.t.device
-    n = len(photons)
+    with profiler.region('daq.run'):
+        det = geometry.detector
+        dev = photons.t.device
+        n = len(photons)
 
-    channel = photon_channels_device(photons, geometry, detection_state)
-    detected = channel >= 0
+        channel = photon_channels_device(photons, geometry, detection_state)
+        detected = channel >= 0
 
-    def draw(block, site, nrep):
-        if uniforms is not None:
-            return torch.from_numpy(np.array(
-                uniforms(block, site, (nrep, n)), np.float32)).to(dev)
-        return torch.rand((nrep, n), generator=generator, device=dev,
-                          dtype=torch.float32)
+        def draw(block, site, nrep):
+            if uniforms is not None:
+                return torch.from_numpy(np.array(
+                    uniforms(block, site, (nrep, n)), np.float32)).to(dev)
+            return torch.rand((nrep, n), generator=generator, device=dev,
+                              dtype=torch.float32)
 
-    nrep = min(ndaq, DAQ_BLOCK)
-    parts = []
-    for b in range(-(-ndaq // DAQ_BLOCK)):
-        u = [draw(b, s, nrep) for s in range(3)]
-        parts.append(_daq_block(photons, det, *u, b * DAQ_BLOCK, ndaq,
-                                global_weight, channel, detected))
-    c = det.nchannels
-    return ChannelArrays(
-        earliest_time=torch.cat([p[0] for p in parts])[:ndaq * c],
-        charge=torch.cat([p[1] for p in parts])[:ndaq * c],
-        histories=torch.cat([p[2] for p in parts])[:ndaq * c])
+        nrep = min(ndaq, DAQ_BLOCK)
+        parts = []
+        for b in range(-(-ndaq // DAQ_BLOCK)):
+            with profiler.region('daq.block'):
+                u = [draw(b, s, nrep) for s in range(3)]
+                parts.append(_daq_block(photons, det, *u, b * DAQ_BLOCK,
+                                        ndaq, global_weight, channel,
+                                        detected))
+        c = det.nchannels
+        return ChannelArrays(
+            earliest_time=torch.cat([p[0] for p in parts])[:ndaq * c],
+            charge=torch.cat([p[1] for p in parts])[:ndaq * c],
+            histories=torch.cat([p[2] for p in parts])[:ndaq * c])
 
 
 def channels_to_host(channel_arrays, evidx=None):
     "ChannelArrays -> event.Channels."
-    t = channel_arrays.earliest_time.cpu().numpy()
-    q = channel_arrays.charge.cpu().numpy()
-    flags = channel_arrays.histories.cpu().numpy().view(np.uint32)
+    with profiler.region('daq.to_host'):
+        t = channel_arrays.earliest_time.cpu().numpy()
+        q = channel_arrays.charge.cpu().numpy()
+        flags = channel_arrays.histories.cpu().numpy().view(np.uint32)
     return event.Channels(hit=t < HIT_TIME_CUT, t=t, q=q, flags=flags,
                           evidx=evidx)
 
@@ -242,10 +247,11 @@ def extract_flat_hits(state, geometry):
     on the device (one sync for the count), the detected lanes gathered
     there and kept there in a LazyHits until a field is read
     (reference: gpu/photon.py:141-209, count -> alloc -> copy)."""
-    channel, perm, n_det = flat_hit_pack(state, geometry)
-    n = int(n_det)
-    sub, ch = gather_hits(state, channel, perm, n)
-    return LazyHits(sub, ch, n)
+    with profiler.region('daq.hits'):
+        channel, perm, n_det = flat_hit_pack(state, geometry)
+        n = int(n_det)
+        sub, ch = gather_hits(state, channel, perm, n)
+        return LazyHits(sub, ch, n)
 
 
 def propagate_with_hits(state, geometry, seed, max_steps=100,

@@ -50,15 +50,14 @@ loads every kernel the capture records. So a bomb launches each kernel
 once a step whichever way the step runs: replays times its count in the
 graph plus one eager step a capture.
 
-`captures`, `capture_s` (host seconds spent capturing) and `replays`
-count this module's work, like visit_kernel.launches (reset freely by
-callers).
+The profiler's graphs.capture span times each capture, outside the
+captured region; the driver counts captures and replays (graphs.captures,
+graphs.replays) once a stage (ops.propagate).
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
-import time
 import weakref
 from collections import OrderedDict
 
@@ -67,10 +66,7 @@ import torch
 from chroma_tpu_torch.ops import step_kernel, visit_kernel, wire_kernel
 from chroma_tpu_torch.ops.photon import propagate_step
 from chroma_tpu_torch.ops.sample import DrawPool, mix_seed
-
-captures = 0
-capture_s = 0.0
-replays = 0
+from chroma_tpu_torch.profiler import profiler
 
 # the kernels whose launches a graph records: (attribute, module, the
 # module's counter)
@@ -108,8 +104,6 @@ class StepGraph:
 
     def __init__(self, geometry, photons, use_weights, scatter_first,
                  prune):
-        global captures, capture_s
-        t0 = time.perf_counter()
         dev = photons.pos.device
         # the kernels and their geometry tables, before the capture
         visit_kernel.build()
@@ -169,9 +163,6 @@ class StepGraph:
                 setattr(mod, ctr, before[name])
             if collecting:
                 gc.enable()
-        self.n_replays = 0
-        captures += 1
-        capture_s += time.perf_counter() - t0
 
     def load(self, photons):
         "Copy a PhotonState of this graph's width into its static state."
@@ -182,13 +173,10 @@ class StepGraph:
         """One step of the loaded lanes, drawing as an eager step with
         make_generator(device, *seed) does. `alive` then holds the count of
         lanes alive after it (on the device)."""
-        global replays
         self.generator.manual_seed(mix_seed(*seed))
         self.graph.replay()
         for name, mod, ctr in KERNELS:
             setattr(mod, ctr, getattr(mod, ctr) + getattr(self, name))
-        replays += 1
-        self.n_replays += 1
 
     def output(self):
         "A copy of the lanes, which the next load or replay overwrites."
@@ -241,6 +229,7 @@ def capture(geometry, photons, use_weights, scatter_first, prune):
     while len(cached) >= MAX_GRAPHS:
         _DEAD.append(cached.popitem(last=False)[1])
     _DEAD.clear()
-    g = StepGraph(geometry, photons, use_weights, scatter_first, prune)
+    with profiler.region('graphs.capture'):
+        g = StepGraph(geometry, photons, use_weights, scatter_first, prune)
     cached[_key(photons, use_weights, scatter_first, prune)] = g
     return g

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from chroma_tpu_torch.ops.daq import MAX_TIME
+from chroma_tpu_torch.profiler import profiler
 
 INV_ROOT2 = 0.70710678118654746
 ROOT_PI_BY_2 = 1.2533141373155001
@@ -54,29 +55,31 @@ class PDFAccumulator:
         self.events_in_histogram = 0
 
     def add(self, channel_arrays, ndaq=1):
-        t, q = _per_replica(channel_arrays, self.nchannels)
-        tmin, tmax = self.trange
-        qmin, qmax = self.qrange
-        ok = ((t < 1e8) & (t >= tmin) & (t < tmax)
-              & (q >= qmin) & (q < qmax))
-        self.hitcount += ok.sum(dim=0)
+        with profiler.region('pdf.accumulate'):
+            t, q = _per_replica(channel_arrays, self.nchannels)
+            tmin, tmax = self.trange
+            qmin, qmax = self.qrange
+            ok = ((t < 1e8) & (t >= tmin) & (t < tmax)
+                  & (q >= qmin) & (q < qmax))
+            self.hitcount += ok.sum(dim=0)
 
-        tbin = ((t - tmin) / (tmax - tmin) * self.tbins).to(torch.int32)
-        qbin = ((q - qmin) / (qmax - qmin) * self.qbins).to(torch.int32)
-        chan = torch.arange(self.nchannels, dtype=torch.int32,
-                            device=t.device)[None, :]
-        flat_bin = (chan * (self.tbins * self.qbins)
-                    + tbin * self.qbins + qbin)
-        flat_bin = torch.where(ok, flat_bin, 0).reshape(-1)
-        self.pdf.scatter_add_(0, flat_bin.to(torch.int64),
-                              ok.reshape(-1).to(torch.int64))
-        self.events_in_histogram += ndaq
+            tbin = ((t - tmin) / (tmax - tmin) * self.tbins).to(torch.int32)
+            qbin = ((q - qmin) / (qmax - qmin) * self.qbins).to(torch.int32)
+            chan = torch.arange(self.nchannels, dtype=torch.int32,
+                                device=t.device)[None, :]
+            flat_bin = (chan * (self.tbins * self.qbins)
+                        + tbin * self.qbins + qbin)
+            flat_bin = torch.where(ok, flat_bin, 0).reshape(-1)
+            self.pdf.scatter_add_(0, flat_bin.to(torch.int64),
+                                  ok.reshape(-1).to(torch.int64))
+            self.events_in_histogram += ndaq
 
     def get(self):
         "(hitcount (C,), pdf (C, tbins, qbins)) as u32 numpy arrays."
-        return (self.hitcount.cpu().numpy().astype(np.uint32),
-                self.pdf.cpu().numpy().astype(np.uint32).reshape(
-                    self.nchannels, self.tbins, self.qbins))
+        with profiler.region('pdf.get'):
+            return (self.hitcount.cpu().numpy().astype(np.uint32),
+                    self.pdf.cpu().numpy().astype(np.uint32).reshape(
+                        self.nchannels, self.tbins, self.qbins))
 
 
 class PDFEval:
@@ -118,59 +121,63 @@ class PDFEval:
         self.nearest_mc.fill_(MAX_TIME)
 
     def accumulate(self, channel_arrays, ndaq=1):
-        t, _ = _per_replica(channel_arrays, self.nchannels)
-        tmin, tmax = self.trange
+        with profiler.region('pdf.accumulate'):
+            t, _ = _per_replica(channel_arrays, self.nchannels)
+            tmin, tmax = self.trange
 
-        in_pdf = (t < 1e8) & (t >= tmin) & (t <= tmax)   # (ndaq, C)
-        self.hitcount += in_pdf.sum(dim=0, dtype=torch.int32)
+            in_pdf = (t < 1e8) & (t >= tmin) & (t <= tmax)   # (ndaq, C)
+            self.hitcount += in_pdf.sum(dim=0, dtype=torch.int32)
 
-        dist = torch.abs(t - self._obs_t[None, :])
-        close = in_pdf & (dist < self.min_twidth / 2.0) \
-            & self._hit_mask[None, :]
-        self.bincount += close.sum(dim=0, dtype=torch.int32)
+            dist = torch.abs(t - self._obs_t[None, :])
+            close = in_pdf & (dist < self.min_twidth / 2.0) \
+                & self._hit_mask[None, :]
+            self.bincount += close.sum(dim=0, dtype=torch.int32)
 
-        # merge the new distances into the per-hit-channel top-K tables
-        d_hit = torch.where(in_pdf[:, self._hit_idx],
-                            dist[:, self._hit_idx], MAX_TIME).T
-        merged = torch.cat([self.nearest_mc, d_hit], dim=1)
-        self.nearest_mc = torch.sort(merged, dim=1).values[
-            :, :self.min_bin_content].contiguous()
+            # merge the new distances into the per-hit-channel top-K tables
+            d_hit = torch.where(in_pdf[:, self._hit_idx],
+                                dist[:, self._hit_idx], MAX_TIME).T
+            merged = torch.cat([self.nearest_mc, d_hit], dim=1)
+            self.nearest_mc = torch.sort(merged, dim=1).values[
+                :, :self.min_bin_content].contiguous()
 
     def get(self):
         """(hitcount, pdf_value, pdf_uncertainty) per channel (reference:
         gpu/pdf.py get_pdf_eval)."""
-        hitcount = self.hitcount.cpu().numpy()
-        bincount = self.bincount.cpu().numpy()
-        nearest_dev = self.nearest_mc.cpu().numpy()
-        evhit = self.event_hit
+        with profiler.region('pdf.get'):
+            hitcount = self.hitcount.cpu().numpy()
+            bincount = self.bincount.cpu().numpy()
+            nearest_dev = self.nearest_mc.cpu().numpy()
+            evhit = self.event_hit
 
-        pdf_value = np.zeros(len(hitcount), dtype=float)
-        pdf_frac_uncert = np.zeros_like(pdf_value)
+            pdf_value = np.zeros(len(hitcount), dtype=float)
+            pdf_frac_uncert = np.zeros_like(pdf_value)
 
-        high_stats = bincount >= self.min_bin_content
-        if high_stats.any():
-            pdf_value[high_stats] = (bincount[high_stats].astype(float)
-                                     / hitcount[high_stats]
-                                     / self.min_twidth)
-            pdf_frac_uncert[high_stats] = 1.0 / np.sqrt(bincount[high_stats])
+            high_stats = bincount >= self.min_bin_content
+            if high_stats.any():
+                pdf_value[high_stats] = (bincount[high_stats].astype(float)
+                                         / hitcount[high_stats]
+                                         / self.min_twidth)
+                pdf_frac_uncert[high_stats] = 1.0 / np.sqrt(
+                    bincount[high_stats])
 
-        low_stats = ~high_stats & (hitcount > 0) & evhit
+            low_stats = ~high_stats & (hitcount > 0) & evhit
 
-        nearest_mc = np.full((len(hitcount), self.min_bin_content), 1e9,
-                             dtype=np.float32)
-        nearest_mc[self.hit_channels, :] = nearest_dev
+            nearest_mc = np.full((len(hitcount), self.min_bin_content), 1e9,
+                                 dtype=np.float32)
+            nearest_mc[self.hit_channels, :] = nearest_dev
 
-        last_valid = np.maximum(
-            0, (nearest_mc < 1e9).astype(int).sum(axis=1) - 1)
-        distance = nearest_mc[np.arange(len(last_valid)), last_valid]
-        if low_stats.any():
-            pdf_value[low_stats] = ((last_valid[low_stats] + 1).astype(float)
-                                    / hitcount[low_stats]
-                                    / distance[low_stats] / 2.0)
-            pdf_frac_uncert[low_stats] = 1.0 / np.sqrt(
-                last_valid[low_stats] + 1)
+            last_valid = np.maximum(
+                0, (nearest_mc < 1e9).astype(int).sum(axis=1) - 1)
+            distance = nearest_mc[np.arange(len(last_valid)), last_valid]
+            if low_stats.any():
+                pdf_value[low_stats] = ((last_valid[low_stats]
+                                         + 1).astype(float)
+                                        / hitcount[low_stats]
+                                        / distance[low_stats] / 2.0)
+                pdf_frac_uncert[low_stats] = 1.0 / np.sqrt(
+                    last_valid[low_stats] + 1)
 
-        return hitcount, pdf_value, pdf_value * pdf_frac_uncert
+            return hitcount, pdf_value, pdf_value * pdf_frac_uncert
 
 
 class KernelPDF:
@@ -203,15 +210,16 @@ class KernelPDF:
         return ok
 
     def accumulate_moments(self, channel_arrays):
-        t, q = _per_replica(channel_arrays, self.nchannels)
-        ok = self._in_window(t, q)
-        self.mom0 += ok.sum(dim=0, dtype=torch.int32)
-        tt = torch.where(ok, t, 0.0)
-        self.t_mom1 += tt.sum(dim=0)
-        self.t_mom2 += (tt * tt).sum(dim=0)
-        qq = torch.where(ok, q, 0.0)
-        self.q_mom1 += qq.sum(dim=0)
-        self.q_mom2 += (qq * qq).sum(dim=0)
+        with profiler.region('pdf.accumulate'):
+            t, q = _per_replica(channel_arrays, self.nchannels)
+            ok = self._in_window(t, q)
+            self.mom0 += ok.sum(dim=0, dtype=torch.int32)
+            tt = torch.where(ok, t, 0.0)
+            self.t_mom1 += tt.sum(dim=0)
+            self.t_mom2 += (tt * tt).sum(dim=0)
+            qq = torch.where(ok, q, 0.0)
+            self.q_mom1 += qq.sum(dim=0)
+            self.q_mom2 += (qq * qq).sum(dim=0)
 
     def compute_bandwidth(self, event_hit, event_time, event_charge,
                           scale_factor=1.0):
@@ -284,29 +292,32 @@ class KernelPDF:
         return term / norm
 
     def accumulate_kernel(self, channel_arrays):
-        t, q = _per_replica(channel_arrays, self.nchannels)
-        ok = self._in_window(t, q)
-        self.hitcount += ok.sum(dim=0, dtype=torch.int32)
+        with profiler.region('pdf.accumulate'):
+            t, q = _per_replica(channel_arrays, self.nchannels)
+            ok = self._in_window(t, q)
+            self.hitcount += ok.sum(dim=0, dtype=torch.int32)
 
-        contrib = ok & self.event_hit[None, :]
-        tmin, tmax = self.trange
-        t_term = self._kde_term(t, self.event_time,
-                                self.inv_time_bandwidths, tmin, tmax)
-        self.time_pdf_values += torch.where(contrib, t_term, 0.0).sum(dim=0)
-        if not self.time_only:
-            qmin, qmax = self.qrange
-            q_term = self._kde_term(q, self.event_charge,
-                                    self.inv_charge_bandwidths, qmin, qmax)
-            self.charge_pdf_values += torch.where(contrib, q_term,
-                                                  0.0).sum(dim=0)
+            contrib = ok & self.event_hit[None, :]
+            tmin, tmax = self.trange
+            t_term = self._kde_term(t, self.event_time,
+                                    self.inv_time_bandwidths, tmin, tmax)
+            self.time_pdf_values += torch.where(contrib, t_term,
+                                                0.0).sum(dim=0)
+            if not self.time_only:
+                qmin, qmax = self.qrange
+                q_term = self._kde_term(q, self.event_charge,
+                                        self.inv_charge_bandwidths, qmin, qmax)
+                self.charge_pdf_values += torch.where(contrib, q_term,
+                                                      0.0).sum(dim=0)
 
     def get_kernel_eval(self):
-        hitcount = self.hitcount.cpu().numpy()
-        denom = np.maximum(1, hitcount)
-        time_pdf_values = self.time_pdf_values.cpu().numpy() / denom
-        charge_pdf_values = self.charge_pdf_values.cpu().numpy() / denom
-        if self.time_only:
-            pdf_values = time_pdf_values
-        else:
-            pdf_values = time_pdf_values * charge_pdf_values
-        return hitcount, pdf_values, np.zeros_like(pdf_values)
+        with profiler.region('pdf.get'):
+            hitcount = self.hitcount.cpu().numpy()
+            denom = np.maximum(1, hitcount)
+            time_pdf_values = self.time_pdf_values.cpu().numpy() / denom
+            charge_pdf_values = self.charge_pdf_values.cpu().numpy() / denom
+            if self.time_only:
+                pdf_values = time_pdf_values
+            else:
+                pdf_values = time_pdf_values * charge_pdf_values
+            return hitcount, pdf_values, np.zeros_like(pdf_values)

@@ -44,10 +44,19 @@ Not ported: the visit-distribution pilot and the traversal-staging tuners
 (`_tune_stages`, `stages_for`, `pstages:` entries), which set the lockstep
 staging of chroma_tpu.ops.mesh_wide that K1's walk replaced.
 
-The profiler's regions and counters carry the JAX driver's names
-(propagate.fused[n=...], propagate.probe[n=...], propagate.chunk[n=...],
-propagate.steps, propagate.lane_steps, propagate.alive_after_chunk) and
-read only counts the driver already holds on the host.
+The profiler's spans carry the JAX driver's names where it has them
+(propagate.fused[n=...], propagate.probe[n=...], propagate.chunk[n=...])
+and mark the fused route's layers: propagate.stage (one _steps call: its
+graph lookups, replays or eager steps, pushes and polls), propagate.wait
+(each host block on the card: the throttle, a stage's alive count, the
+end's abort flag), propagate.compact (the front-pack's permutation and
+gathers, and the reassembly) and propagate.mop. Its counters, each
+counted once a call from counts the driver already holds on the host:
+propagate.steps and propagate.lane_steps, propagate.tail_steps (steps of
+stages no compaction follows, mop-ups' included), propagate.overflow_lanes
+(survivors beyond a stage's slice, sent to the mop-up),
+propagate.blocking_reads, propagate.throttle_waits, and the graph route's
+graphs.captures and graphs.replays.
 """
 from __future__ import annotations
 
@@ -78,12 +87,6 @@ POLL_LAG = 4
 # the overflow lanes' stream: (key, OVERFLOW_SALT); beyond the mop-up
 # bucket ((key, OVERFLOW_SALT), 1) -- JAX folds the same constant in
 OVERFLOW_SALT = 0x5F3759DF
-
-# blocking host reads of device values made by the fused route (reset
-# freely by callers)
-blocking_reads = 0
-# waits of the fused route's host for the step POLL_LAG steps back
-throttle_waits = 0
 
 
 def photon_state_from_host(photons, device):
@@ -183,7 +186,8 @@ def _cat(a, b):
 
 def _aborted(photons):
     "Whether a lane carries NAN_ABORT (one blocking read on the card)."
-    return bool(((photons.flags & i32(event.NAN_ABORT)) != 0).any())
+    with profiler.region('propagate.wait'):
+        return bool(((photons.flags & i32(event.NAN_ABORT)) != 0).any())
 
 
 # ---------------------------------------------------------------------------
@@ -417,10 +421,10 @@ class _Poll:
                                   pin_memory=self.cuda)
         self.events = []
         self.known = 0      # leading steps whose counts the host has
+        self.waits = 0      # pushes that waited for the card
 
     def push(self, alive):
         "Record the 0-d alive count of the next step."
-        global throttle_waits
         i = len(self.events)
         if not self.cuda:
             self.counts[i] = alive
@@ -433,8 +437,9 @@ class _Poll:
         self.events.append(ev)
         if i - POLL_LAG >= self.known:
             # keep POLL_LAG steps queued, no more: the card stays busy
-            self.events[i - POLL_LAG].synchronize()
-            throttle_waits += 1
+            with profiler.region('propagate.wait'):
+                self.events[i - POLL_LAG].synchronize()
+            self.waits += 1
 
     def dead(self):
         "Whether a finished step left no lane alive."
@@ -448,14 +453,14 @@ class _Poll:
     def last(self):
         """The alive count after the last step pushed (None before any);
         a blocking read when the host does not have it yet."""
-        global blocking_reads
         n = len(self.events)
         if not n:
             return None
         if self.known < n:
-            self.events[-1].synchronize()
+            with profiler.region('propagate.wait'):
+                self.events[-1].synchronize()
             self.known = n
-            blocking_reads += 1
+            profiler.count('propagate.blocking_reads')
         return int(self.counts[n - 1])
 
 
@@ -465,38 +470,49 @@ def _steps(photons, geometry, key, start, nsteps, use_weights,
     stream `key`, stopping once a finished step left no lane alive.
     Returns (photons, _Poll of the steps run)."""
     n, dev = len(photons), photons.pos.device
-    poll = _Poll(dev, max(nsteps, 0))
-    graph = None        # the graph whose static state holds the lanes
-    for i in range(nsteps):
-        if poll.dead():
-            break
-        step = start + i
-        sf = scatter_first if step == 0 else 0
-        g = graphs.lookup(geometry, photons, use_weights, sf, prune) \
-            if use_graphs else None
-        if g is None:
-            if graph is not None:
-                photons, graph = graph.output(), None
-            pool = DrawPool(n, dev, generator=make_generator(dev, key, step))
-            photons = propagate_step(photons, geometry, pool,
-                                     use_weights=use_weights,
-                                     scatter_first=sf, prune=prune)
-            alive = photons.alive.sum()
-            if use_graphs:
-                # the step just run loaded every kernel it launches:
-                # capture it for this width's later steps
-                graphs.capture(geometry, photons, use_weights, sf, prune)
-        else:
-            if g is not graph:
-                g.load(photons if graph is None else graph.state)
-                graph = g
-            graph.replay(key, step)
-            alive = graph.alive
-        poll.push(alive)
-    if graph is not None:
-        photons = graph.output()
-    profiler.count('propagate.steps', len(poll.events))
-    profiler.count('propagate.lane_steps', len(poll.events) * n)
+    replays = captures = 0
+    with profiler.region('propagate.stage'):
+        poll = _Poll(dev, max(nsteps, 0))
+        graph = None        # the graph whose static state holds the lanes
+        for i in range(nsteps):
+            if poll.dead():
+                break
+            step = start + i
+            sf = scatter_first if step == 0 else 0
+            g = graphs.lookup(geometry, photons, use_weights, sf, prune) \
+                if use_graphs else None
+            if g is None:
+                if graph is not None:
+                    photons, graph = graph.output(), None
+                pool = DrawPool(n, dev,
+                                generator=make_generator(dev, key, step))
+                photons = propagate_step(photons, geometry, pool,
+                                         use_weights=use_weights,
+                                         scatter_first=sf, prune=prune)
+                alive = photons.alive.sum()
+                if use_graphs:
+                    # the step just run loaded every kernel it launches:
+                    # capture it for this width's later steps
+                    graphs.capture(geometry, photons, use_weights, sf,
+                                   prune)
+                    captures += 1
+            else:
+                if g is not graph:
+                    g.load(photons if graph is None else graph.state)
+                    graph = g
+                graph.replay(key, step)
+                replays += 1
+                alive = graph.alive
+            poll.push(alive)
+        if graph is not None:
+            photons = graph.output()
+    steps = len(poll.events)
+    profiler.count('propagate.steps', steps)
+    profiler.count('propagate.lane_steps', steps * n)
+    profiler.count('propagate.throttle_waits', poll.waits)
+    if use_graphs:
+        profiler.count('graphs.captures', captures)
+        profiler.count('graphs.replays', replays)
     return photons, poll
 
 
@@ -522,11 +538,20 @@ def _fused_bomb(photons, geometry, seed, schedule, max_steps,
     curves = []
     opts = (use_weights, scatter_first, prune, use_graphs)
 
+    def tail(poll):
+        "Count a stage's steps that no compaction follows."
+        profiler.count('propagate.tail_steps', len(poll.events))
+
+    def to_end(ph, key, start):
+        "The steps left, with no compaction after them."
+        ph, poll = _steps(ph, geometry, key, start, max_steps - start, *opts)
+        tail(poll)
+        return ph
+
     def stage(ph, start, sched):
         n = len(ph)
         if not sched or start >= max_steps:
-            return _steps(ph, geometry, seed, start, max_steps - start,
-                          *opts)[0]
+            return to_end(ph, seed, start)
         nsteps = min(sched[0][0], max_steps - start)
         ph, poll = _steps(ph, geometry, seed, start, nsteps, *opts)
         if report:
@@ -534,9 +559,11 @@ def _fused_bomb(photons, geometry, seed, schedule, max_steps,
         start2 = start + nsteps
         m = _resolve_width(n, sched[0])
         if start2 >= max_steps or m < MIN_BATCH or m >= n:
+            tail(poll)
             return ph
         n_alive = poll.last()
         if n_alive == 0:
+            tail(poll)
             # every later stage would run no step; the probe's curve
             # still gets their (zero) counts, as JAX's does
             for ent in sched[1:] if report else ():
@@ -546,14 +573,16 @@ def _fused_bomb(photons, geometry, seed, schedule, max_steps,
                 curves.append(torch.zeros(k, dtype=torch.int64))
                 start2 += k
             return ph
-        profiler.count('propagate.alive_after_chunk', n_alive)
-        dest, perm = _ps_compact_perm(ph.alive)
-        php = ph.map(lambda a: a[perm])
+        with profiler.region('propagate.compact'):
+            dest, perm = _ps_compact_perm(ph.alive)
+            php = ph.map(lambda a: a[perm])
         prefix = stage(php.map(lambda a: a[:m]), start2, sched[1:])
         suffix = php.map(lambda a: a[m:])
         if n_alive > m:
+            profiler.count('propagate.overflow_lanes', n_alive - m)
             suffix = mop(suffix, n_alive - m, start2, m)
-        return _cat(prefix, suffix).map(lambda a: a[dest])
+        with profiler.region('propagate.compact'):
+            return _cat(prefix, suffix).map(lambda a: a[dest])
 
     def mop(suffix, overflow, start, m):
         """The overflow lanes (survivors beyond the slice, rare by
@@ -562,22 +591,19 @@ def _fused_bomb(photons, geometry, seed, schedule, max_steps,
         any, on a stream of their own at the rest's width."""
         okey = (seed, OVERFLOW_SALT)
         m2 = max(min(m // 4, 1 << 16), MIN_BATCH)
-        if len(suffix) <= m2 * 2:
-            return _steps(suffix, geometry, okey, start, max_steps - start,
-                          *opts)[0]
-        pre = _steps(suffix.map(lambda a: a[:m2]), geometry, okey, start,
-                     max_steps - start, *opts)[0]
-        post = suffix.map(lambda a: a[m2:])
-        if overflow > m2:
-            post = _steps(post, geometry, (okey, 1), start,
-                          max_steps - start, *opts)[0]
-        return _cat(pre, post)
+        with profiler.region('propagate.mop'):
+            if len(suffix) <= m2 * 2:
+                return to_end(suffix, okey, start)
+            pre = to_end(suffix.map(lambda a: a[:m2]), okey, start)
+            post = suffix.map(lambda a: a[m2:])
+            if overflow > m2:
+                post = to_end(post, (okey, 1), start)
+            return _cat(pre, post)
 
     out = stage(photons, 0, tuple(schedule))
-    global blocking_reads
     abort = _aborted(out)         # the end's read: also syncs the curves
     if out.pos.is_cuda:
-        blocking_reads += 1
+        profiler.count('propagate.blocking_reads')
     curve = None
     if report:
         curve = (torch.cat(curves).numpy() if curves
@@ -751,7 +777,6 @@ def propagate(photons, geometry, seed, max_steps=100, step_chunk='auto',
         step += nsteps
         profiler.count('propagate.steps', nsteps)
         profiler.count('propagate.lane_steps', nsteps * len(current))
-        profiler.count('propagate.alive_after_chunk', n_alive)
         if track_steps:
             tracking.append((orig_idx.cpu().numpy().copy(), current.map(
                 lambda a: a.to('cpu', copy=True))))

@@ -29,6 +29,7 @@ from chroma_tpu_torch.ops.mesh_wide import _wrap32
 from chroma_tpu_torch.ops.photon import (PhotonState, i32, propagate_step,
                                          select)
 from chroma_tpu_torch.ops.sample import DrawPool, make_generator
+from chroma_tpu_torch.profiler import profiler
 
 # generator id of a hybrid-render batch's photon source: (seed, batch,
 # SOURCE_SITE), beside its steps' (seed, batch, step)
@@ -107,49 +108,50 @@ def render(origin, direction, geometry, alpha_depth=10,
     not be normalized). Returns (N,) int32 ARGB pixels (u32 bit patterns).
     """
     _dense(geometry)
-    n = origin.shape[0]
-    dev = origin.device
-    origin = origin.to(torch.float32).contiguous()
-    direction = _unit(direction)
+    with profiler.region('render.peel'):
+        n = origin.shape[0]
+        dev = origin.device
+        origin = origin.to(torch.float32).contiguous()
+        direction = _unit(direction)
 
-    fr = torch.zeros(n, dtype=torch.float32, device=dev)
-    fg = torch.zeros_like(fr)
-    fb = torch.zeros_like(fr)
-    scale = torch.ones_like(fr)
-    hits = torch.zeros(n, dtype=torch.int32, device=dev)
+        fr = torch.zeros(n, dtype=torch.float32, device=dev)
+        fg = torch.zeros_like(fr)
+        fb = torch.zeros_like(fr)
+        scale = torch.ones_like(fr)
+        hits = torch.zeros(n, dtype=torch.int32, device=dev)
 
-    for tri, _ in peel(origin, direction, geometry, alpha_depth):
-        hit = tri >= 0
-        safe = torch.where(hit, tri, 0).to(torch.int64)
-        r, g, b, alpha = _shade(direction, geometry.tri_normals[safe],
-                                geometry.colors[safe])
-        fr = fr + torch.where(hit, scale * r * alpha, 0.0)
-        fg = fg + torch.where(hit, scale * g * alpha, 0.0)
-        fb = fb + torch.where(hit, scale * b * alpha, 0.0)
-        scale = torch.where(hit, scale * (1.0 - alpha), scale)
-        hits = hits + hit.to(torch.int32)
+        for tri, _ in peel(origin, direction, geometry, alpha_depth):
+            hit = tri >= 0
+            safe = torch.where(hit, tri, 0).to(torch.int64)
+            r, g, b, alpha = _shade(direction, geometry.tri_normals[safe],
+                                    geometry.colors[safe])
+            fr = fr + torch.where(hit, scale * r * alpha, 0.0)
+            fg = fg + torch.where(hit, scale * g * alpha, 0.0)
+            fb = fb + torch.where(hit, scale * b * alpha, 0.0)
+            scale = torch.where(hit, scale * (1.0 - alpha), scale)
+            hits = hits + hit.to(torch.int32)
 
-    # composite the background
-    bg = int(bg_color) & 0xFFFFFFFF
-    bga = np.float32((bg >> 24) & 0xFF) / np.float32(255.0)
-    bgr, bgg, bgb = (np.float32((bg >> s) & 0xFF) for s in (16, 8, 0))
-    fr = fma(scale, torch.full_like(scale, bgr * bga), fr)
-    fg = fma(scale, torch.full_like(scale, bgg * bga), fg)
-    fb = fma(scale, torch.full_like(scale, bgb * bga), fb)
-    scale = scale * float(np.float32(1.0) - bga)
+        # composite the background
+        bg = int(bg_color) & 0xFFFFFFFF
+        bga = np.float32((bg >> 24) & 0xFF) / np.float32(255.0)
+        bgr, bgg, bgb = (np.float32((bg >> s) & 0xFF) for s in (16, 8, 0))
+        fr = fma(scale, torch.full_like(scale, bgr * bga), fr)
+        fg = fma(scale, torch.full_like(scale, bgg * bga), fg)
+        fb = fma(scale, torch.full_like(scale, bgb * bga), fb)
+        scale = scale * float(np.float32(1.0) - bga)
 
-    denom = torch.clamp(1.0 - scale, min=1e-20)
-    a_out = torch.where(hits < alpha_depth,
-                        torch.floor(255.0 * (1.0 - scale)), 255.0)
-    red = torch.floor(fr / denom)
-    green = torch.floor(fg / denom)
-    blue = torch.floor(fb / denom)
+        denom = torch.clamp(1.0 - scale, min=1e-20)
+        a_out = torch.where(hits < alpha_depth,
+                            torch.floor(255.0 * (1.0 - scale)), 255.0)
+        red = torch.floor(fr / denom)
+        green = torch.floor(fg / denom)
+        blue = torch.floor(fb / denom)
 
-    pixel = _wrap32(a_out.to(torch.int64) << 24
-                    | red.to(torch.int64) << 16
-                    | green.to(torch.int64) << 8
-                    | blue.to(torch.int64))
-    return torch.where(hits > 0, pixel, i32(bg))
+        pixel = _wrap32(a_out.to(torch.int64) << 24
+                        | red.to(torch.int64) << 16
+                        | green.to(torch.int64) << 8
+                        | blue.to(torch.int64))
+        return torch.where(hits > 0, pixel, i32(bg))
 
 
 def distances(origin, direction, geometry):

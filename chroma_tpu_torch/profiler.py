@@ -1,22 +1,29 @@
 """Profiling facade of the torch port (counterpart of chroma_tpu.profiler;
-reference: chroma/gpu/profiler.py + cuda/profile.h).
+reference: chroma/gpu/profiler.py + cuda/profile.h): the port's one
+tracing system.
 
 Three mechanisms, all opt-in like the reference:
 
-  * host region timers -- accumulate calls/total/min/max per named region;
-    regions are recorded by the Simulation/propagate drivers when
-    profiling is on;
-  * step counters -- the propagate driver reports steps executed, the
-    live-lane integral and the survivors of each chunk (the analog of
-    cuda/profile.h's region counters), from counts it already holds on
-    the host, so they add no device sync;
+  * spans -- `region(name)` around a layer or stage of the program. When
+    the profiler is enabled a span accumulates calls/total/min/max of its
+    host time under `name` (report(), chroma-profile), and opens a
+    torch.profiler host range `chroma.<base>`, where <base> is the name up
+    to any '[' (propagate.fused[n=4194304] -> chroma.propagate.fused). The
+    range lands in any torch.profiler trace, nested under its parent span
+    and on the clock of the card's activity, so the card's idle time can
+    be put down to the span the host was in. The range is torch's fast
+    record function: it marks the host's timeline only, not the card's.
+    When disabled, region() returns one shared no-op context;
+  * counters -- `count(name, n)`: the drivers count once per call (a stage,
+    a capture, a read), never per step, from what they already hold on
+    the host, so a counter adds no device sync;
   * device traces -- trace(logdir) wraps torch.profiler and writes a
-    Chrome trace (chrome://tracing, Perfetto).
+    Chrome trace (chrome://tracing, Perfetto) holding the spans.
 
 Enable with CHROMA_PROFILE=1 (auto-report at exit with
-CHROMA_PROFILE_AUTOREPORT=1), as the JAX package does. A region times the
-host: around asynchronous CUDA work it measures the enqueue, unless the
-code inside synchronises.
+CHROMA_PROFILE_AUTOREPORT=1), as the JAX package does. A span's host time
+around asynchronous CUDA work measures the enqueue, unless the code inside
+synchronises.
 """
 from __future__ import annotations
 
@@ -26,16 +33,26 @@ import os
 import time
 from collections import defaultdict
 
+import torch
+
+PREFIX = 'chroma.'
+
+_OFF = contextlib.nullcontext()
+
+
+def _range(name):
+    "A torch.profiler host range named `name` (no device-side mark)."
+    return torch._C._profiler._RecordFunctionFast(name)
+
 
 class RegionStats(object):
-    __slots__ = ('calls', 'total', 'min', 'max', 'last', 'first')
+    __slots__ = ('calls', 'total', 'min', 'max', 'first')
 
     def __init__(self):
         self.calls = 0
         self.total = 0.0
         self.min = float('inf')
         self.max = 0.0
-        self.last = 0.0
         self.first = 0.0   # first call: includes kernel builds and warm-up
 
     def add(self, dt):
@@ -45,7 +62,23 @@ class RegionStats(object):
         self.total += dt
         self.min = min(self.min, dt)
         self.max = max(self.max, dt)
-        self.last = dt
+
+
+class _Span(object):
+    "An enabled region: its host range and its host-clock statistics."
+    __slots__ = ('stats', 'range', 't0')
+
+    def __init__(self, stats, name):
+        self.stats = stats
+        self.range = _range(PREFIX + name.split('[', 1)[0])
+
+    def __enter__(self):
+        self.range.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        self.stats.add(time.perf_counter() - self.t0)
+        self.range.__exit__(*exc)
 
 
 class Profiler(object):
@@ -54,17 +87,11 @@ class Profiler(object):
         self.regions = defaultdict(RegionStats)
         self.counters = defaultdict(int)
 
-    @contextlib.contextmanager
     def region(self, name):
-        "Time a code region (no-op when disabled)."
+        "A span around a code region (a shared no-op when disabled)."
         if not self.enabled:
-            yield
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.regions[name].add(time.perf_counter() - t0)
+            return _OFF
+        return _Span(self.regions[name], name)
 
     def count(self, name, n=1):
         if self.enabled:
@@ -95,9 +122,9 @@ class Profiler(object):
 
     @contextlib.contextmanager
     def trace(self, logdir='chroma_tpu_torch_trace'):
-        """Capture a torch.profiler trace of the block (host ops, and CUDA
-        kernels when a card is present) as a Chrome trace in `logdir`."""
-        import torch
+        """Capture a torch.profiler trace of the block (host ops and the
+        enabled spans, and CUDA kernels when a card is present) as a
+        Chrome trace in `logdir`."""
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():

@@ -223,41 +223,45 @@ class Simulation:
             with profiler.region('sim.readback'):
                 channel = None
                 if want_hits:
-                    channel = np.maximum(daq_ops.photon_channels_device(
-                        result, self.gpu_geometry).cpu().numpy(),
-                        0).astype(np.uint32)
+                    with profiler.region('sim.channels'):
+                        channel = np.maximum(
+                            daq_ops.photon_channels_device(
+                                result, self.gpu_geometry).cpu().numpy(),
+                            0).astype(np.uint32)
                 photons_end = photon_state_to_host(result, channel=channel)
 
         for i, ev in enumerate(batch_events):
-            start, end = int(bounds[i]), int(bounds[i + 1])
-            if not keep_photons_beg:
-                ev.photons_beg = None
-            if tracking is not None:
-                with profiler.region('sim.tracks'):
-                    ev.photon_tracks = self._regroup_tracks(tracking, start,
-                                                            end)
-            if keep_photons_end:
-                ev.photons_end = photons_end[start:end]
-            if want_hits:
-                ev_hits = batch_hits if len(batch_events) == 1 \
-                    else batch_hits[batch_hits.evidx == i]
-                if keep_hits:
-                    order = np.argsort(ev_hits.channel, kind='stable')
-                    sh = ev_hits[order]
-                    chans, starts = np.unique(sh.channel, return_index=True)
-                    ends = np.r_[starts[1:], len(sh.channel)]
-                    ev.hits = {int(c): sh[s:e]
-                               for c, s, e in zip(chans, starts, ends)}
-                if keep_flat_hits:
-                    ev.flat_hits = ev_hits
-            if self.has_channels and run_daq:
-                with profiler.region('sim.daq'):
-                    ev_state = result.map(lambda a: a[start:end])
-                    gen = make_generator(self.device, *batch_seed,
-                                         DAQ_SITE + i)
-                    arrays = daq_ops.run_daq(ev_state, self.gpu_geometry,
-                                             gen)
-                    ev.channels = daq_ops.channels_to_host(arrays)
+            with profiler.region('sim.event'):
+                start, end = int(bounds[i]), int(bounds[i + 1])
+                if not keep_photons_beg:
+                    ev.photons_beg = None
+                if tracking is not None:
+                    with profiler.region('sim.tracks'):
+                        ev.photon_tracks = self._regroup_tracks(
+                            tracking, start, end)
+                if keep_photons_end:
+                    ev.photons_end = photons_end[start:end]
+                if want_hits:
+                    ev_hits = batch_hits if len(batch_events) == 1 \
+                        else batch_hits[batch_hits.evidx == i]
+                    if keep_hits:
+                        order = np.argsort(ev_hits.channel, kind='stable')
+                        sh = ev_hits[order]
+                        chans, starts = np.unique(sh.channel,
+                                                  return_index=True)
+                        ends = np.r_[starts[1:], len(sh.channel)]
+                        ev.hits = {int(c): sh[s:e]
+                                   for c, s, e in zip(chans, starts, ends)}
+                    if keep_flat_hits:
+                        ev.flat_hits = ev_hits
+                if self.has_channels and run_daq:
+                    with profiler.region('sim.daq'):
+                        ev_state = result.map(lambda a: a[start:end])
+                        gen = make_generator(self.device, *batch_seed,
+                                             DAQ_SITE + i)
+                        arrays = daq_ops.run_daq(ev_state,
+                                                 self.gpu_geometry, gen)
+                        ev.channels = daq_ops.channels_to_host(arrays)
             yield ev
 
     @staticmethod
@@ -357,18 +361,20 @@ class Simulation:
         """An event's photons on the device: uploaded once, so the nreps
         propagations of a likelihood loop reuse them. A PhotonState passes
         through, with its medium set to unknown if it has none."""
-        if isinstance(photons, PhotonState):
-            from chroma_tpu_torch.gpu import _with_cur_mat
-            return _with_cur_mat(photons)
-        return photon_state_from_host(photons, self.device)
+        with profiler.region('sim.source'):
+            if isinstance(photons, PhotonState):
+                from chroma_tpu_torch.gpu import _with_cur_mat
+                return _with_cur_mat(photons)
+            return photon_state_from_host(photons, self.device)
 
     def _propagate_daq(self, state, ndaq):
         """Propagate a device PhotonState (not modified) with the next
         seed, then run the DAQ (ndaq replicas) on its own generator."""
         seed = self._next_seed()
-        result = propagate(state, self.gpu_geometry, seed,
-                           max_steps=PDF_MAX_STEPS,
-                           step_chunk=self.step_chunk)
+        with profiler.region('sim.propagate'):
+            result = propagate(state, self.gpu_geometry, seed,
+                               max_steps=PDF_MAX_STEPS,
+                               step_chunk=self.step_chunk)
         gen = make_generator(self.device, *seed, DAQ_SITE)
         return daq_ops.run_daq(result, self.gpu_geometry, gen, ndaq=ndaq)
 

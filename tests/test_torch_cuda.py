@@ -36,6 +36,17 @@ def cuda():
     return torch.device('cuda')
 
 
+@pytest.fixture
+def prof_counters(monkeypatch):
+    "The profiler's counters, fresh and counting for the test."
+    from chroma_tpu_torch.profiler import profiler
+    monkeypatch.setattr(profiler, 'enabled', True)
+    monkeypatch.setattr(profiler, 'regions', type(profiler.regions)(
+        profiler.regions.default_factory))
+    monkeypatch.setattr(profiler, 'counters', type(profiler.counters)(int))
+    return profiler.counters
+
+
 def _table(fmt):
     "The tests/test_visit_kernel.py fixture geometry, as a port table."
     geo = Geometry(water)
@@ -439,28 +450,28 @@ FUSED_FIELDS = ('pos', 'dir', 'pol', 'wavelength', 't', 'weight', 'flags',
 
 
 @pytest.mark.cuda
-def test_graph_replay_matches_eager_fused_route(cuda):
+def test_graph_replay_matches_eager_fused_route(cuda, prof_counters):
     """The fused bomb on demo.tiny(), one schedule and seed: with every
     step a CUDA graph replay (after the first step at each width, which
     runs eagerly and is captured) and with every step eager, every
     PhotonState field equal bit for bit; K1 launched once a step either
     way (a stage stops a few no-op steps after its last lane died, as many
     as its poll lags behind the card)."""
-    from chroma_tpu_torch.ops import graphs
     from chroma_tpu_torch.ops import propagate as P
     ga = _tiny_on(cuda)
     state = _device_bomb(1 << 15, 7, cuda)
     sched = ((1, 2), (2, 2), (4, 2))
     out = {}
     for use_graphs in (False, True, True):
-        launches, replays = visit_kernel.launches, graphs.replays
+        launches = visit_kernel.launches
+        replays = prof_counters['graphs.replays']
         res, _, abort = P._fused_bomb(state, ga, (9, 2), sched, 100,
                                       use_graphs=use_graphs)
         torch.cuda.synchronize()
         assert not abort
         out.setdefault(use_graphs, []).append(
             (res, visit_kernel.launches - launches,
-             graphs.replays - replays))
+             prof_counters['graphs.replays'] - replays))
     (eager, k_eager, r_eager), = out[False]
     assert r_eager == 0 and k_eager > 0
     for res, k, r in out[True]:
@@ -473,9 +484,10 @@ def test_graph_replay_matches_eager_fused_route(cuda):
 
 
 @pytest.mark.cuda
-def test_replay_adds_the_captured_k1_launches(cuda):
+def test_replay_adds_the_captured_k1_launches(cuda, prof_counters):
     """A replay moves visit_kernel.launches by the K1 launches its capture
-    recorded (one), and the capture itself by none."""
+    recorded (one), and the capture itself by none; a replay counts
+    nothing in the profiler (the driver counts once a stage)."""
     from chroma_tpu_torch.ops import graphs
     ga = _tiny_on(cuda)
     state = _device_bomb(4096, 8, cuda)
@@ -494,7 +506,7 @@ def test_replay_adds_the_captured_k1_launches(cuda):
         assert step_kernel.pre_launches == before_pre + g.k2_pre * (step
                                                                    + 1)
     torch.cuda.synchronize()
-    assert g.n_replays == 3
+    assert not prof_counters
 
 
 def _wire_box(angles=(0.0,)):
@@ -518,7 +530,7 @@ def _wire_box(angles=(0.0,)):
 
 
 @pytest.mark.cuda
-def test_capture_with_host_sync_raises(cuda, monkeypatch):
+def test_capture_with_host_sync_raises(cuda, monkeypatch, prof_counters):
     """Capturing a step that reads a device value on the host (here the
     wire walk's plain twin, which reads the batch's widest window) raises,
     with no eager retry, and the card stays usable: with K3, which reads
@@ -527,18 +539,19 @@ def test_capture_with_host_sync_raises(cuda, monkeypatch):
     from chroma_tpu_torch.ops import propagate as P
     ga = build_geometry_arrays(_wire_box()).to(cuda)
     state = _device_bomb(4096, 9, cuda)
-    monkeypatch.setattr(wire_kernel, 'walk', wireplane.walk_plain)
     before = visit_kernel.launches
-    with pytest.raises(RuntimeError):
-        graphs.capture(ga, state, False, 0, True)
-    assert visit_kernel.launches == before
-    assert graphs.lookup(ga, state, False, 0, True) is None
-    torch.cuda.synchronize()
-    monkeypatch.undo()
-    captures = graphs.captures
+    with monkeypatch.context() as mp:
+        mp.setattr(wire_kernel, 'walk', wireplane.walk_plain)
+        with pytest.raises(RuntimeError):
+            graphs.capture(ga, state, False, 0, True)
+        assert visit_kernel.launches == before
+        assert graphs.lookup(ga, state, False, 0, True) is None
+        torch.cuda.synchronize()
+    captures = prof_counters['graphs.captures']
     res, _, _ = P._fused_bomb(state, ga, 3, ((1, 2),), 100)
     torch.cuda.synchronize()
-    assert graphs.captures > captures and visit_kernel.launches > before
+    assert prof_counters['graphs.captures'] > captures
+    assert visit_kernel.launches > before
     assert not res.alive.any()
 
 
@@ -737,12 +750,12 @@ def test_wire_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-def test_wire_plane_replay_matches_eager(cuda):
+def test_wire_plane_replay_matches_eager(cuda, prof_counters):
     """The fused bomb on a wire-plane geometry takes the graph route: with
     graph replays and with every step eager, same seed, every field equal
     bit for bit; K1, K3 and K2's k2_pre and k2_post launched once a step
     either way."""
-    from chroma_tpu_torch.ops import graphs, step_kernel, wire_kernel
+    from chroma_tpu_torch.ops import step_kernel, wire_kernel
     from chroma_tpu_torch.ops import propagate as P
     ga = build_geometry_arrays(_optics_box()).to(cuda)
     state = _device_bomb(1 << 15, 13, cuda)
@@ -751,7 +764,8 @@ def test_wire_plane_replay_matches_eager(cuda):
     def counters():
         return (visit_kernel.launches, step_kernel.launches,
                 step_kernel.pre_launches, wire_kernel.launches,
-                graphs.replays, graphs.captures)
+                prof_counters['graphs.replays'],
+                prof_counters['graphs.captures'])
     for use_graphs in (False, True):
         counts = counters()
         res, _, abort = P._fused_bomb(state, ga, (9, 3), sched, 100,

@@ -739,7 +739,7 @@ def test_cli_profile(tmp_path, cli_cache, monkeypatch):
                       '--device', 'cpu'])
     text = buf.getvalue()
     for needle in ('propagate.chunk[n=1000]', 'sim.daq', 'event.total',
-                   'propagate.steps', 'propagate.alive_after_chunk',
+                   'propagate.steps', 'propagate.lane_steps', 'sim.event',
                    'by node kind', 'photons/s', 'lane-steps/photon'):
         assert needle in text, needle
     assert (tmp_path / 'trace' / 'trace.json').stat().st_size > 0

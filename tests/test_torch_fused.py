@@ -249,7 +249,7 @@ def test_fused_bomb_suffix_mop(monkeypatch):
     assert tprop.schedule_for(ga_t, n, 64) == ((1, 8),)
     res = tprop.propagate(ps, ga_t, seed=5, max_steps=64)
     # survivors after step 1 overflowed the 2,048-lane slice
-    assert profiler.counters['propagate.alive_after_chunk'] > n // 8
+    assert profiler.counters['propagate.overflow_lanes'] > 0
     fl = res.flags.numpy().view(np.uint32)
     term = (event.SURFACE_DETECT | event.BULK_ABSORB
             | event.SURFACE_ABSORB | event.NO_HIT | event.NAN_ABORT)
@@ -334,7 +334,8 @@ def test_tune_false_never_probes(fresh_cache, monkeypatch, tiny):
     for name in ('pos', 'dir', 'pol', 'wavelength', 't', 'weight', 'flags',
                  'last_hit_triangle', 'evidx', 'cur_mat'):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
-    assert list(profiler.regions) == ['propagate.fused[n=%d]' % n]
+    assert [r for r in profiler.regions if '[' in r] == \
+        ['propagate.fused[n=%d]' % n]
     assert not tprop._SCHED_CACHE and not tprop._PROBE_COUNTS
     assert not (fresh_cache / tperf.PERF_DIR).exists()
 
