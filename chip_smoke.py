@@ -10,10 +10,11 @@ Phases, each printing its results; any failure raises and the exit code is
 non-zero:
 
   0. card and software (nvidia-smi name and power limit, torch, CUDA);
-  1. build, all at once, into build/: the three kernels with nvcc -- K1,
+  1. build, all at once, into build/: the four kernels with nvcc -- K1,
      the visit kernel (chroma_tpu_torch/csrc/visit_kernel.cu), K2, the
      step around the query (csrc/step_kernel.cu: k2_pre and k2_post), K3,
-     the wire walk (csrc/wire_walk.cu) -- and the host geometry kit
+     the wire walk (csrc/wire_walk.cu), K4, the DAQ readout
+     (csrc/daq_kernel.cu) -- and the host geometry kit
      (chroma_tpu_torch/csrc/geometry_kit.cpp) with g++; print ptxas's
      registers and spills for each kernel;
   2. the kernel against its plain PyTorch version on the card, on 10^4
@@ -146,14 +147,24 @@ non-zero:
      K3, its first design, its wrapper (its twin at 2^20 only), each with
      its bound. Then what each main path loses to each kernel against its
      bound: its steps by width times (time - bound).
+ 14. K4, the DAQ readout, against its plain twin on the card at the
+     likelihood's 50 replicas of 10^4 photons and the bomb's one of 2^22
+     (phase 5's end states): equal bit for bit, and run_daq's generator
+     path equal to the twin fed the old per-block torch.rand draws; the readout timed as a launch of a
+     20-launch graph, the twin and the whole run_daq eagerly, beside its
+     bound (the bytes it must move, in 32-byte sectors: every photon's
+     last triangle and flags, a detected photon's time and weight, a
+     detected pair's keep draw, a kept pair's two other draws, the
+     channels written); K4's launches, the profiler's daq.kernel_calls
+     and run_daq's calls, counted from 0, equal on a Likelihood.eval of
+     4 x 16 x 50 (64) and on a bomb (1).
 
-The kernels' launches (K1, k2_pre, k2_post, K3) are counted on each main
-path (phases 5
-to 12, reset just before and read just after; a graph replay adds the
-launches its capture holds) and printed per phase; the first designs of
-K1, K2 and K3 are launched on none of them. The last lines are a JSON object describing
-the kernels, and {"ok": true, "device": {...}}. Needs CUDA and the
-repository checkout.
+The kernels' launches (K1, k2_pre, k2_post, K3, K4) are counted on each
+main path (phases 5 to 12, reset just before and read just after; a
+graph replay adds the launches its capture holds) and printed per phase;
+the first designs of K1, K2 and K3 are launched on none of them. The last
+lines are a JSON object describing the kernels, and {"ok": true,
+"device": {...}}. Needs CUDA and the repository checkout.
 """
 import collections
 import contextlib
@@ -197,6 +208,8 @@ SWEEP = sorted([1 << k for k in range(13, 21)] + [N_SMALL])
 # tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+# phase 14's readouts (replicas, photons): the likelihood's, the bomb's
+DAQ_SHAPES = ((50, 10000), (1, 1 << 22))
 
 
 def log(*args):
@@ -205,39 +218,43 @@ def log(*args):
 
 class Launches(int):
     """K1's launches on a path (the int, as every phase reports them),
-    with K2's (`k2_pre` and `k2`, k2_post's) and K3's (`k3`) beside it;
-    sums add all four."""
+    with K2's (`k2_pre` and `k2`, k2_post's), K3's (`k3`) and K4's (`k4`)
+    beside it; sums add all five."""
 
-    def __new__(cls, k1, k2_pre=0, k2=0, k3=0):
+    def __new__(cls, k1, k2_pre=0, k2=0, k3=0, k4=0):
         self = super().__new__(cls, k1)
-        self.k2_pre, self.k2, self.k3 = k2_pre, k2, k3
+        self.k2_pre, self.k2, self.k3, self.k4 = k2_pre, k2, k3, k4
         return self
 
     def __add__(self, other):
         return Launches(int(self) + int(other),
                         self.k2_pre + getattr(other, 'k2_pre', 0),
                         self.k2 + getattr(other, 'k2', 0),
-                        self.k3 + getattr(other, 'k3', 0))
+                        self.k3 + getattr(other, 'k3', 0),
+                        self.k4 + getattr(other, 'k4', 0))
 
     __radd__ = __add__
 
     def counts(self):
-        "[K1, k2_pre, k2_post, K3]."
-        return [int(self), self.k2_pre, self.k2, self.k3]
+        "[K1, k2_pre, k2_post, K3, K4]."
+        return [int(self), self.k2_pre, self.k2, self.k3, self.k4]
 
 
 def zero_launches():
-    "Set the launch counts of K1, K2 (k2_pre, k2_post) and K3 to 0."
-    from chroma_tpu_torch.ops import step_kernel, visit_kernel, wire_kernel
+    "Set the launch counts of K1, K2 (k2_pre, k2_post), K3 and K4 to 0."
+    from chroma_tpu_torch.ops import (daq_kernel, step_kernel, visit_kernel,
+                                      wire_kernel)
     visit_kernel.launches = step_kernel.launches = wire_kernel.launches = 0
-    step_kernel.pre_launches = 0
+    step_kernel.pre_launches = daq_kernel.launches = 0
 
 
 def launches_now():
-    "The launch counts of K1, K2 and K3 since zero_launches()."
-    from chroma_tpu_torch.ops import step_kernel, visit_kernel, wire_kernel
+    "The launch counts of K1, K2, K3 and K4 since zero_launches()."
+    from chroma_tpu_torch.ops import (daq_kernel, step_kernel, visit_kernel,
+                                      wire_kernel)
     return Launches(visit_kernel.launches, step_kernel.pre_launches,
-                    step_kernel.launches, wire_kernel.launches)
+                    step_kernel.launches, wire_kernel.launches,
+                    daq_kernel.launches)
 
 
 def card_line():
@@ -1391,11 +1408,12 @@ def run_tool(module, args, env):
                'runpy.run_module(%r, run_name="__main__", alter_sys=True); '
                'print("tool seconds %%.3f" %% (time.perf_counter() - t0), '
                'file=sys.stderr); '
-               'from chroma_tpu_torch.ops import (step_kernel, '
-               'visit_kernel, wire_kernel); '
+               'from chroma_tpu_torch.ops import (daq_kernel, '
+               'step_kernel, visit_kernel, wire_kernel); '
                'print("visit-kernel launches", visit_kernel.launches, '
                'step_kernel.pre_launches, step_kernel.launches, '
-               'wire_kernel.launches, file=sys.stderr)' % (module, module))
+               'wire_kernel.launches, daq_kernel.launches, '
+               'file=sys.stderr)' % (module, module))
     proc = subprocess.run([sys.executable, '-c', prelude, *args], env=env,
                           cwd=os.path.dirname(os.path.abspath(__file__)),
                           capture_output=True, text=True, timeout=600)
@@ -1403,7 +1421,7 @@ def run_tool(module, args, env):
         raise RuntimeError('%s failed (%d):\n%s' % (module, proc.returncode,
                                                     proc.stderr[-4000:]))
     launches = Launches(*map(int, re.findall(
-        r'visit-kernel launches (\d+) (\d+) (\d+) (\d+)',
+        r'visit-kernel launches (\d+) (\d+) (\d+) (\d+) (\d+)',
         proc.stderr)[-1]))
     return proc.stdout, proc.stderr, launches
 
@@ -2873,6 +2891,157 @@ def main_path_loss(widths, times, key=None):
     return total, count
 
 
+def daq_photons(ends, n, device):
+    """n end states for a readout: phase 5's, repeated as needed, on the
+    card."""
+    from chroma_tpu_torch.ops.propagate import photon_state_from_host
+    state = photon_state_from_host(ends, device)
+    reps = -(-n // len(state))
+    return state.map(lambda a: a.repeat(
+        (reps,) + (1,) * (a.dim() - 1))[:n].contiguous())
+
+
+def k4_bytes(ph, ga, draws, ndaq, global_weight=1.0):
+    """The bytes a readout of `draws` (ops.daq.daq_draws) must move, in
+    32-byte sectors, and its kept (replica, photon) pairs: every photon's
+    last triangle and flags; the time and weight of each detected one;
+    each detected pair's keep draw and each kept pair's time and charge
+    draws; the (ndaq * C,) earliest times, charges and histories
+    written."""
+    import torch
+    from chroma_tpu_torch.ops import daq
+    n = len(ph)
+    rows = draws.shape[2]
+
+    def sectors(idx):       # distinct sectors of 4-byte elements at idx
+        return int(torch.unique(idx // 8).numel())
+
+    det = torch.nonzero(daq.photon_channels_device(ph, ga) >= 0).flatten()
+    total = 2 * sectors(torch.arange(n, device=det.device)) \
+        + 2 * sectors(det)
+    keep_below = ph.weight[det] * global_weight
+    site = rows * n
+    kept_pairs = 0
+    for r in range(ndaq):
+        b, row = divmod(r, rows)
+        base = (3 * b * rows + row) * n
+        kept = det[(1.0 - draws[b, 0, row, det]) < keep_below]
+        kept_pairs += len(kept)
+        total += sectors(base + det) + sectors(base + site + kept) \
+            + sectors(base + 2 * site + kept)
+    total += 3 * -(-ndaq * ga.detector.nchannels // 8)
+    return 32 * total, kept_pairs
+
+
+def phase_daq_kernel(ga, ends, device, card):
+    """Phase 14: K4 (init, K4 and finish as ops.daq_kernel.readout
+    launches them) against its plain twin readout_plain on the card at
+    DAQ_SHAPES, phase 5's end states read out: earliest times, charges and
+    histories equal bit for bit, and run_daq's generator path equal to the
+    twin fed one torch.rand a block and site. Timed in turns: the readout
+    as a launch of a 20-launch graph, the twin and the whole of run_daq
+    (the draws' fills, the readout) eagerly, each beside the bound of the
+    bytes the readout must move (k4_bytes) over PEAK_BYTES_S. Returns the
+    rows by shape."""
+    import torch
+    from chroma_tpu_torch.ops import daq, daq_kernel
+    log('phase 14: K4 (the DAQ readout) against its plain twin, timed')
+    rows = {}
+    for ndaq, n in DAQ_SHAPES:
+        ph = daq_photons(ends, n, device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(2 ** 35 + n + ndaq)
+        draws = daq.daq_draws(n, ndaq, device, gen)
+        got = daq.ChannelArrays(*daq_kernel.readout(ph, ga, draws, ndaq))
+        ref = daq.readout_plain(ph, ga, draws, ndaq)
+        gen.manual_seed(7)
+        by_gen = daq.run_daq(ph, ga, gen, ndaq=ndaq)
+        gen.manual_seed(7)
+        nrow = min(ndaq, daq.DAQ_BLOCK)
+        old = torch.stack([torch.stack([
+            torch.rand((nrow, n), generator=gen, device=device)
+            for _ in range(3)]) for _ in range(-(-ndaq // daq.DAQ_BLOCK))])
+        old = daq.readout_plain(ph, ga, old, ndaq)
+        for name in ('earliest_time', 'charge', 'histories'):
+            for a, b in ((got, ref), (by_gen, old)):
+                assert torch.equal(getattr(a, name).view(torch.int32),
+                                   getattr(b, name).view(torch.int32)), \
+                    '%s differs at (%d, %d)' % (name, ndaq, n)
+        detected = int((daq.photon_channels_device(ph, ga) >= 0).sum())
+        hit = int((ref.earliest_time < daq.HIT_TIME_CUT).sum())
+        times = time_graphed({
+            'k4': graphed(lambda: daq_kernel.readout(ph, ga, draws, ndaq)),
+            'plain': lambda: daq.readout_plain(ph, ga, draws, ndaq),
+            'run_daq': lambda: daq.run_daq(ph, ga, gen, ndaq=ndaq)}, {'k4'})
+        nbytes, kept = k4_bytes(ph, ga, draws, ndaq)
+        bound = nbytes / PEAK_BYTES_S * 1e3
+        rows['%dx%d' % (ndaq, n)] = row = dict(
+            ndaq=ndaq, photons=n, detected=detected, kept_pairs=kept,
+            slots_hit=hit, ms=times['k4'], plain_ms=times['plain'],
+            run_daq_ms=times['run_daq'], bytes=nbytes, bound_ms=bound,
+            bound_by='bytes', bound_share=bound / times['k4'])
+        log('  %d replicas x %d photons (%d detected, %d pairs kept, %d of '
+            '%d slots hit): K4 %.4f ms (graphed), twin %.3f ms, run_daq '
+            '%.3f ms, bound %.4f ms (%d bytes in sectors, %.1f%%); equal to '
+            'the twin bit for bit, the generator path to the per-block '
+            'draws (%s)' % (
+                ndaq, n, detected, kept, hit, ndaq * ga.detector.nchannels,
+                row['ms'], row['plain_ms'], row['run_daq_ms'], bound,
+                nbytes, 100.0 * row['bound_share'], card))
+    return rows
+
+
+def daq_kernel_calls(sim, lk, card):
+    """K4's launches (the wrapper's count, from 0 just before), the
+    profiler's daq.kernel_calls and run_daq's calls (its daq.run spans)
+    on each of two main paths: a Likelihood.eval as the benchmark's
+    likelihood makes it (4 trial vertices x 16 reps x 50 replicas, 64
+    readouts) and an N_BOMB-photon quick bomb (one event, one readout).
+    All three equal, path by path; returns them by path."""
+    from chroma_tpu_torch.profiler import profiler
+    paths = {
+        'likelihood eval 4 x 16 x 50': (64, lambda: lk.eval(
+            likelihood_gun(19), 4, nreps=16, ndaq=50)),
+        'bomb %d' % N_BOMB: (1, lambda: run_main_path(sim, N_BOMB, 21))}
+    out = {}
+    profiler.enabled = True
+    try:
+        for name, (want, run) in paths.items():
+            profiler.reset()
+            zero_launches()
+            run()
+            out[name] = dict(k4_launches=launches_now().k4,
+                             kernel_calls=profiler.counters[
+                                 'daq.kernel_calls'],
+                             run_daq_calls=profiler.regions['daq.run'].calls)
+            assert set(out[name].values()) == {want}, (name, out[name])
+    finally:
+        profiler.enabled = False
+        profiler.reset()
+    log('  K4 launches, daq.kernel_calls and run_daq calls by path: %s (%s)'
+        % (json.dumps(out), card))
+    return out
+
+
+def daq_row(k4, launches, per_path):
+    """K4's entry of the `kernels` line: its launches on the main paths
+    (phases 5 to 12, `per_path`), a call of each path phase 14 counts, and
+    its times at each of DAQ_SHAPES."""
+    big = k4['shapes']['%dx%d' % DAQ_SHAPES[-1]]
+    return {'name': 'daq', 'route': 'cuda',
+            'source': 'chroma_tpu_torch/csrc/daq_kernel.cu',
+            'replaces': 'chroma_tpu/ops/daq.py:70',
+            'launches': launches, 'launches_per_path': per_path,
+            'launches_per_call': {k: v['k4_launches'] for k, v in
+                                  k4['kernel_calls'].items()},
+            'max_abs_err': 0.0,
+            'lanes': big['photons'], 'ms': big['ms'],
+            'plain_ms': big['plain_ms'], 'bound_ms': big['bound_ms'],
+            'bound_by': big['bound_by'], 'bound_share': big['bound_share'],
+            'library_ms': None, 'thread_ms': None,
+            'by_shape': k4['shapes']}
+
+
 def main(argv, work):
     import torch
     if not torch.cuda.is_available():
@@ -2900,23 +3069,24 @@ def main(argv, work):
 
     # --- 1. build, all at once
     from chroma_tpu_torch import native
-    from chroma_tpu_torch.ops import step_kernel, wire_kernel
+    from chroma_tpu_torch.ops import daq_kernel, step_kernel, wire_kernel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         jobs = [pool.submit(visit_kernel.build), pool.submit(step_kernel.build),
-                pool.submit(wire_kernel.build),
+                pool.submit(wire_kernel.build), pool.submit(daq_kernel.build),
                 pool.submit(native.available)]
         kit = [job.result() for job in jobs][-1]
-    log('phase 1: built %s, %s, %s and %s (%s) in %.1f s' % (
+    log('phase 1: built %s, %s, %s, %s and %s (%s) in %.1f s' % (
         os.path.relpath(visit_kernel.SOURCE),
         os.path.relpath(step_kernel.SOURCE),
         os.path.relpath(wire_kernel.SOURCE),
+        os.path.relpath(daq_kernel.SOURCE),
         os.path.relpath(native.SOURCE),
         'loaded' if kit else 'unavailable: numpy paths',
         time.perf_counter() - t0))
     assert kit, 'the host geometry kit did not build'
     for name, mod in (('K1', visit_kernel), ('K2', step_kernel),
-                      ('K3', wire_kernel)):
+                      ('K3', wire_kernel), ('K4', daq_kernel)):
         log('  ptxas %s: %s' % (name, ptxas_summary(mod.build_log)))
 
     # --- 2. kernel vs plain on the card
@@ -2968,6 +3138,8 @@ def main(argv, work):
                            len(ev.channels.hit), aborts, launches, peak,
                            card))
     assert launches > 0, 'the main path launched no visit kernel'
+    assert launches.k4 == 1, 'one event read out by %d K4 launches' \
+        % launches.k4
     assert len(hits) > 0 and aborts == 0
     assert len(ev.photons_end) == N_BOMB
     for name in ('pos', 'dir', 't'):
@@ -3041,6 +3213,11 @@ def main(argv, work):
          ('lartpc-wires', lartpc_ga, (0.0, 0.0, -300.0), {}, 0)],
         lartpc_ga, device, card)
 
+    # --- 14. K4 against its plain twin, timed; its calls counted
+    k4 = dict(shapes=phase_daq_kernel(quick_dev, ev.photons_end, device,
+                                      card),
+              kernel_calls=daq_kernel_calls(sim, lk, card))
+
     per_phase = {'5 quick': launches, '6 quick-optics': launches6,
                  **launches7, '8 likelihood': launches8,
                  '9b device source': launches9b, '9c facade': launches9c,
@@ -3051,10 +3228,11 @@ def main(argv, work):
                  '10f gdml': launches10f, '11 sharded': launches11,
                  '12b replay vs eager': launches12b, **launches12}
     log('visit-kernel launches per main path: %s' % json.dumps(per_phase))
-    log('K1, k2_pre, k2_post, K3 launches per main path: %s' % json.dumps(
-        {k: v.counts() for k, v in per_phase.items()}))
+    log('K1, k2_pre, k2_post, K3, K4 launches per main path: %s'
+        % json.dumps({k: v.counts() for k, v in per_phase.items()}))
     total = sum(per_phase.values())
     assert total.k2 > 0 and total.k3 > 0 and total.k2_pre > 0
+    assert total.k4 > 0
     assert visit_kernel.thread_launches == thread_launches, \
         'a main path launched the first design'
 
@@ -3152,7 +3330,9 @@ def main(argv, work):
         kernel_row('wire_walk', 'wire_walk.cu',
                    'chroma_tpu/ops/wireplane.py:151', total.k3,
                    {k: v.k3 for k, v in per_phase.items() if v.k3},
-                   twins['k3'], twins['k3']['times'], losses['K3'])]}))
+                   twins['k3'], twins['k3']['times'], losses['K3']),
+        daq_row(k4, total.k4,
+                {k: v.k4 for k, v in per_phase.items() if v.k4})]}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

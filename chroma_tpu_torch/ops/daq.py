@@ -1,11 +1,16 @@
 """PMT DAQ and flat-hit extraction for the torch port (counterpart of
 chroma_tpu.ops.daq).
 
-Per channel: the earliest hit time is a scatter_reduce 'amin', the charge
-a scatter_add of integer counts of charge_unit (so the order in which the
-device adds them cannot change the sum), and the history an OR built from
-a per-bit 'amax'. Flat hits are counted and packed on the device and stay
-there, in a LazyHits, until a field is read.
+A readout's draws are made first, all of them, into one (blocks, 3,
+rows, N) buffer in the order the replica blocks always drew them
+(daq_draws). On a CUDA tensor K4 (ops.daq_kernel, csrc/daq_kernel.cu)
+then reads out every replica in one launch; on the CPU its plain twin,
+readout_plain, reduces block by block: per channel the earliest hit time
+is a scatter_reduce 'amin', the charge a scatter_add of integer counts of
+charge_unit (so the order in which the device adds them cannot change
+the sum), and the history an OR built from a per-bit 'amax'. Flat hits
+are counted and packed on the device and stay there, in a LazyHits,
+until a field is read.
 """
 from __future__ import annotations
 
@@ -16,13 +21,14 @@ import torch
 
 from chroma_tpu_torch import event
 from chroma_tpu_torch.event import SURFACE_DETECT
+from chroma_tpu_torch.ops import daq_kernel
 from chroma_tpu_torch.ops.photon import i32
 from chroma_tpu_torch.ops.sample import sample_cdf_pairs, uniform
 from chroma_tpu_torch.profiler import profiler
 
 MAX_TIME = 1e9      # "no hit" earliest-time sentinel
 HIT_TIME_CUT = 1e8  # a channel is hit if its earliest time is below this
-DAQ_BLOCK = 8       # replica rows materialised per block
+DAQ_BLOCK = 8       # replica rows a block of draws
 
 
 @dataclasses.dataclass
@@ -96,6 +102,43 @@ def _daq_block(photons, det, u_keep, u_time, u_charge, rep0, ndaq,
     return earliest[:-1], q, histories
 
 
+def daq_draws(n, ndaq, device, generator=None, uniforms=None):
+    """A readout's U[0, 1) draws as one (blocks, 3, rows, N) f32 tensor:
+    ceil(ndaq / DAQ_BLOCK) blocks of rows = min(ndaq, DAQ_BLOCK) replicas,
+    sites keep, time, charge; the last block is drawn whole. A generator
+    fills the (rows, N) views block by block, site by site, each with the
+    numbers torch.rand of that shape would give next (the stream of one
+    torch.rand a block and site); `uniforms(block, site, shape)` arrays
+    are copied in instead."""
+    rows = min(ndaq, DAQ_BLOCK)
+    out = torch.empty((-(-ndaq // DAQ_BLOCK), 3, rows, n),
+                      dtype=torch.float32, device=device)
+    for k, view in enumerate(out.view(-1, rows, n).unbind()):
+        if uniforms is None:
+            view.uniform_(0.0, 1.0, generator=generator)
+        else:
+            view.copy_(torch.from_numpy(np.array(
+                uniforms(*divmod(k, 3), (rows, n)), np.float32)))
+    return out
+
+
+def readout_plain(photons, geometry, draws, ndaq, global_weight=1.0,
+                  detection_state=SURFACE_DETECT):
+    """K4's plain twin: the readout of `draws` (daq_draws) block by block
+    with scatters, on any device. Returns ChannelArrays (ndaq*C,)."""
+    det = geometry.detector
+    c = det.nchannels
+    channel = photon_channels_device(photons, geometry, detection_state)
+    detected = channel >= 0
+    parts = [_daq_block(photons, det, *block, b * DAQ_BLOCK, ndaq,
+                        global_weight, channel, detected)
+             for b, block in enumerate(draws)]
+    return ChannelArrays(
+        earliest_time=torch.cat([p[0] for p in parts])[:ndaq * c],
+        charge=torch.cat([p[1] for p in parts])[:ndaq * c],
+        histories=torch.cat([p[2] for p in parts])[:ndaq * c])
+
+
 def run_daq(photons, geometry, generator=None, ndaq=1, uniforms=None,
             global_weight=1.0, detection_state=SURFACE_DETECT):
     """One DAQ readout (or `ndaq` replicas) of a propagated PhotonState
@@ -103,36 +146,23 @@ def run_daq(photons, geometry, generator=None, ndaq=1, uniforms=None,
     ended on a triangle of a channel with a `detection_state` flag bit,
     and is kept with probability weight * global_weight. Draws come from
     `generator`, or from `uniforms(block, site, shape)` -- U[0, 1) arrays,
-    site 0 keep, 1 time, 2 charge -- when injected. Returns ChannelArrays
-    with leading dimension ndaq*C, replica-major."""
+    site 0 keep, 1 time, 2 charge -- when injected (daq_draws). CUDA
+    tensors are read out by K4 in one launch, CPU tensors by its plain
+    twin. Returns ChannelArrays with leading dimension ndaq*C,
+    replica-major."""
     with profiler.region('daq.run'):
-        det = geometry.detector
         dev = photons.t.device
-        n = len(photons)
-
-        channel = photon_channels_device(photons, geometry, detection_state)
-        detected = channel >= 0
-
-        def draw(block, site, nrep):
-            if uniforms is not None:
-                return torch.from_numpy(np.array(
-                    uniforms(block, site, (nrep, n)), np.float32)).to(dev)
-            return torch.rand((nrep, n), generator=generator, device=dev,
-                              dtype=torch.float32)
-
-        nrep = min(ndaq, DAQ_BLOCK)
-        parts = []
-        for b in range(-(-ndaq // DAQ_BLOCK)):
-            with profiler.region('daq.block'):
-                u = [draw(b, s, nrep) for s in range(3)]
-                parts.append(_daq_block(photons, det, *u, b * DAQ_BLOCK,
-                                        ndaq, global_weight, channel,
-                                        detected))
-        c = det.nchannels
-        return ChannelArrays(
-            earliest_time=torch.cat([p[0] for p in parts])[:ndaq * c],
-            charge=torch.cat([p[1] for p in parts])[:ndaq * c],
-            histories=torch.cat([p[2] for p in parts])[:ndaq * c])
+        with profiler.region('daq.draws'):
+            draws = daq_draws(len(photons), ndaq, dev, generator, uniforms)
+        with profiler.region('daq.reduce'):
+            if dev.type != 'cuda':
+                return readout_plain(photons, geometry, draws, ndaq,
+                                     global_weight, detection_state)
+            out = ChannelArrays(*daq_kernel.readout(
+                photons, geometry, draws, ndaq, global_weight,
+                detection_state))
+            profiler.count('daq.kernel_calls')
+            return out
 
 
 def channels_to_host(channel_arrays, evidx=None):

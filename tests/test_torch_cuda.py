@@ -24,6 +24,9 @@ from chroma_tpu_torch.ops.photon import PhotonState
 from chroma_tpu_torch.ops.types import (build_geometry_arrays,
                                         pack_material_codes)
 
+from daq_cases import (DAQ_CASES, channel_arrays_equal, daq_case,
+                       daq_geometries, daq_photons, daq_uniforms)
+
 torch.set_num_threads(2)
 
 FORMATS = {'f32': (0, 'f32'), 'bf16': (32, 'bf16'), 'q8': (32, 'q8')}
@@ -954,3 +957,66 @@ def test_kernel_wrappers_reject_bad_masks(cuda):
             wire_kernel.launch(pos, d, table, bad)
     got = wire_kernel.launch(pos, d, table, active.to(torch.uint8))
     assert torch.equal(got[1], wire_kernel.launch(pos, d, table, active)[1])
+
+
+@pytest.fixture(scope='module')
+def daq_geos():
+    return daq_geometries()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', list(DAQ_CASES))
+def test_daq_kernel_matches_plain(cuda, daq_geos, prof_counters, name):
+    """K4 (run_daq on the card, one launch) against its plain twin
+    readout_plain on the same injected draws: earliest times, charges and
+    histories bit for bit; some channels hit, some times negative."""
+    from chroma_tpu_torch.ops import daq, daq_kernel
+    photons, ga, kw = daq_case(daq_geos, name, cuda)
+    before = daq_kernel.launches
+    got = daq.run_daq(photons, ga, **kw)
+    assert daq_kernel.launches == before + 1
+    assert prof_counters['daq.kernel_calls'] == 1
+    ndaq = kw['ndaq']
+    draws = daq.daq_draws(len(photons), ndaq, cuda, uniforms=daq_uniforms)
+    ref = daq.readout_plain(photons, ga, draws, ndaq,
+                            kw.get('global_weight', 1.0),
+                            kw.get('detection_state', event.SURFACE_DETECT))
+    torch.cuda.synchronize()
+    channel_arrays_equal(got, ref)
+    assert got.earliest_time.shape == (ndaq * ga.detector.nchannels,)
+    t = ref.earliest_time
+    assert bool((t < 0).any()) and bool(((t > 0) & (t < daq.HIT_TIME_CUT))
+                                        .any())
+    assert bool((t == daq.MAX_TIME).any()) == (name == 'few-photons')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ndaq', [1, 50])
+def test_daq_kernel_generator_path(cuda, daq_geos, ndaq):
+    """run_daq with a generator on the card against the twin fed one
+    torch.rand a block and site from an identically seeded generator (the
+    old per-block draw stream), four readouts of one shape, one starting
+    from a generator already drawn from. Each equal bit for bit, and each
+    caller's generator left where the per-block draws leave the
+    reference's."""
+    from chroma_tpu_torch.ops import daq
+    ga = daq_geos['inst'].to(cuda)
+    photons = daq_photons(daq_geos['ntri'], 10000, 5, cuda)
+    rows = min(ndaq, daq.DAQ_BLOCK)
+    gen, ref_gen = (torch.Generator(device=cuda) for _ in range(2))
+    for k in range(4):
+        for g in (gen, ref_gen):
+            g.manual_seed(2 ** 40 + 7 * k)
+            if k == 2:
+                torch.rand(1000, generator=g, device=cuda)
+        got = daq.run_daq(photons, ga, gen, ndaq=ndaq)
+        draws = torch.stack([
+            torch.stack([torch.rand((rows, len(photons)), generator=ref_gen,
+                                    device=cuda) for _ in range(3)])
+            for _ in range(-(-ndaq // daq.DAQ_BLOCK))])
+        ref = daq.readout_plain(photons, ga, draws, ndaq)
+        torch.cuda.synchronize()
+        channel_arrays_equal(got, ref)
+        assert gen.get_offset() == ref_gen.get_offset()
+        assert torch.equal(torch.rand(64, generator=gen, device=cuda),
+                           torch.rand(64, generator=ref_gen, device=cuda))

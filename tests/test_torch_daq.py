@@ -6,6 +6,8 @@ flat-hit pack (channels, permutation, count) must be bit for bit equal,
 for one readout and for replicas spanning two blocks; so must the gathers
 of the packed hits, the host channel map, and the fields of the hits that
 stay on the device (LazyHits) once they are read."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,8 @@ from chroma_tpu_torch.ops import daq as tdaq
 from chroma_tpu_torch.ops import propagate as tprop
 from chroma_tpu_torch.ops import types as ttypes
 
+from daq_cases import (DAQ_CASES, channel_arrays_equal, daq_case,
+                       daq_geometries)
 from test_torch_host import same_native_kit  # noqa: F401
 
 torch.set_num_threads(2)
@@ -220,3 +224,136 @@ def test_propagate_with_hits_matches_jax():
     p = sum(counts) / (2.0 * n)
     assert 0.4 < p < 0.6
     assert abs(counts[0] - counts[1]) <= 5 * np.sqrt(2 * n * p * (1 - p))
+
+
+@pytest.mark.parametrize('ndaq', [1, 7, 8, 9, 50])
+def test_draw_buffer_matches_per_block_rand(ndaq):
+    """daq_draws fills its (blocks, 3, rows, N) buffer with the numbers one
+    torch.rand a block and site (keep, time, charge) gives from the same
+    generator, the last block drawn whole, and leaves the generator where
+    those calls leave it."""
+    n = 1001
+    gen = torch.Generator()
+    gen.manual_seed(2 ** 33 + 5)
+    got = tdaq.daq_draws(n, ndaq, 'cpu', gen)
+    after = torch.rand(4, generator=gen)
+    gen.manual_seed(2 ** 33 + 5)
+    rows = min(ndaq, tdaq.DAQ_BLOCK)
+    nblocks = -(-ndaq // tdaq.DAQ_BLOCK)
+    assert got.shape == (nblocks, 3, rows, n) and got.dtype == torch.float32
+    for b in range(nblocks):
+        for site in range(3):
+            assert torch.equal(got[b, site],
+                               torch.rand((rows, n), generator=gen))
+    assert torch.equal(after, torch.rand(4, generator=gen))
+
+
+@pytest.mark.parametrize('ndaq', [1, 9])
+def test_draw_buffer_holds_injected_uniforms(ndaq):
+    """daq_draws with `uniforms` copies uniforms(block, site, (rows, N))
+    into block `block`, site `site` of its buffer, the last block whole,
+    and draws nothing from a generator."""
+    n = 37
+    calls = []
+
+    def uniforms(block, site, shape):
+        calls.append((block, site, shape))
+        return np.full(shape, 0.125 * (3 * block + site) + 0.0625,
+                       np.float64)
+    got = tdaq.daq_draws(n, ndaq, 'cpu', uniforms=uniforms)
+    rows = min(ndaq, tdaq.DAQ_BLOCK)
+    nblocks = -(-ndaq // tdaq.DAQ_BLOCK)
+    assert got.shape == (nblocks, 3, rows, n) and got.dtype == torch.float32
+    assert calls == [(b, site, (rows, n)) for b in range(nblocks)
+                     for site in range(3)]
+    for b in range(nblocks):
+        for site in range(3):
+            assert torch.equal(got[b, site], torch.full(
+                (rows, n), 0.125 * (3 * b + site) + 0.0625))
+
+
+def test_rows_past_ndaq_contribute_nothing(hits):
+    """The last block's rows past ndaq are drawn but read by no replica:
+    with every one of their draws changed (every photon kept, another time
+    and charge) the readout is the same, and it has ndaq * C slots."""
+    _, ta, _, ts = hits
+    ndaq = 9
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    draws = tdaq.daq_draws(len(ts), ndaq, 'cpu', gen)
+    base = tdaq.readout_plain(ts, ta, draws, ndaq)
+    changed = draws.clone()
+    changed[-1, :, ndaq - tdaq.DAQ_BLOCK:] = 0.999
+    got = tdaq.readout_plain(ts, ta, changed, ndaq)
+    assert base.earliest_time.shape == (ndaq * ta.detector.nchannels,)
+    for name in ('earliest_time', 'charge', 'histories'):
+        assert torch.equal(getattr(got, name), getattr(base, name)), name
+
+
+def test_run_daq_on_cpu_never_touches_k4(hits, monkeypatch):
+    """run_daq on CPU tensors reads out with the plain twin: K4's wrapper
+    is neither built nor called, and the kernel-call counter stays 0."""
+    from chroma_tpu_torch.ops import daq_kernel
+    from chroma_tpu_torch.profiler import profiler
+
+    def boom(*args, **kwargs):
+        raise AssertionError('K4 touched on the CPU')
+    monkeypatch.setattr(daq_kernel, 'readout', boom)
+    monkeypatch.setattr(daq_kernel, 'build', boom)
+    monkeypatch.setattr(profiler, 'enabled', True)
+    monkeypatch.setattr(profiler, 'counters', type(profiler.counters)(int))
+    _, ta, _, ts = hits
+    before = daq_kernel.launches
+    gen = torch.Generator()
+    gen.manual_seed(9)
+    got = tdaq.run_daq(ts, ta, gen, ndaq=10)
+    assert (got.earliest_time < tdaq.HIT_TIME_CUT).any()
+    assert daq_kernel.launches == before
+    assert profiler.counters['daq.kernel_calls'] == 0
+
+
+@pytest.fixture(scope='module')
+def host_k4():
+    """K4 (csrc/daq_kernel.cu) built for the host (tools_torch/
+    kernel_emulation.py): daq_kernel.readout runs it on CPU tensors."""
+    import shutil
+    import sys
+    from chroma_tpu_torch.ops import daq_kernel
+    if shutil.which('g++') is None:
+        pytest.skip('needs g++ to build the kernel for the host')
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'tools_torch'))
+    import kernel_emulation
+    with kernel_emulation.host_kernels((daq_kernel,)):
+        yield
+
+
+@pytest.fixture(scope='module')
+def daq_geos():
+    return daq_geometries()
+
+
+@pytest.mark.parametrize('name', list(DAQ_CASES))
+def test_host_built_k4_matches_twin(host_k4, daq_geos, name):
+    """K4 built for the host, its threads real threads and its atomics
+    atomic, against readout_plain on the same draws: the cases of the card
+    test (tests/test_torch_cuda.py), bit for bit. The readout's arithmetic
+    is IEEE adds, multiplies and divides and one rint, which glibc and the
+    card round alike."""
+    from chroma_tpu_torch.ops import daq_kernel
+    photons, ga, kw = daq_case(daq_geos, name, 'cpu')
+    ndaq = kw['ndaq']
+    draws = tdaq.daq_draws(len(photons), ndaq, 'cpu',
+                           uniforms=kw['uniforms'])
+    opts = (kw.get('global_weight', 1.0),
+            kw.get('detection_state', tevent.SURFACE_DETECT))
+    before = daq_kernel.launches
+    got = tdaq.ChannelArrays(*daq_kernel.readout(photons, ga, draws, ndaq,
+                                                 *opts))
+    assert daq_kernel.launches == before + 1
+    ref = tdaq.readout_plain(photons, ga, draws, ndaq, *opts)
+    channel_arrays_equal(got, ref)
+    t = ref.earliest_time
+    assert bool((t < 0).any()) and bool(((t > 0) & (t < tdaq.HIT_TIME_CUT))
+                                        .any())
+    assert bool((t == tdaq.MAX_TIME).any()) == (name == 'few-photons')

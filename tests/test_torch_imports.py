@@ -45,6 +45,7 @@ def test_scan_covers_the_port():
                  os.path.join('ops', 'visit_kernel.py'),
                  os.path.join('ops', 'step_kernel.py'),
                  os.path.join('ops', 'wire_kernel.py'),
+                 os.path.join('ops', 'daq_kernel.py'),
                  os.path.join('ops', 'cuda_build.py'),
                  os.path.join('bvh', 'build.py'),
                  os.path.join('bvh', 'bvh.py'), 'loader.py', 'cache.py',
@@ -98,9 +99,11 @@ def test_port_reads_its_own_files():
     "Data, kernel and native sources resolve inside chroma_tpu_torch/."
     from chroma_tpu_torch import native
     from chroma_tpu_torch.demo import optics, pmt
-    from chroma_tpu_torch.ops import step_kernel, visit_kernel, wire_kernel
+    from chroma_tpu_torch.ops import (daq_kernel, step_kernel, visit_kernel,
+                                      wire_kernel)
     for path in (optics._DATA, pmt._DATA, native.SOURCE,
-                 visit_kernel.SOURCE, step_kernel.SOURCE, wire_kernel.SOURCE):
+                 visit_kernel.SOURCE, step_kernel.SOURCE, wire_kernel.SOURCE,
+                 daq_kernel.SOURCE):
         assert os.path.realpath(path).startswith(os.path.realpath(PORT)
                                                  + os.sep), path
         assert os.path.exists(path), path

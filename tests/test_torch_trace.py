@@ -129,9 +129,9 @@ def test_span_names_and_stats(profiling, monkeypatch):
 def test_spans_nest_in_the_trace(tiny, profiling, monkeypatch):
     """Under torch.profiler the spans are kineto host ranges that nest as
     the layers do: sim.propagate > propagate.fused > propagate.stage and
-    sim.daq > daq.run > daq.block; any two chroma. ranges are disjoint or
-    nested; and what the caller runs after next(simulate(...)) lies in
-    no chroma. range."""
+    sim.daq > daq.run > daq.draws, daq.reduce; any two chroma. ranges are
+    disjoint or nested; and what the caller runs after next(simulate(...))
+    lies in no chroma. range."""
     monkeypatch.delenv('CHROMA_FUSED', raising=False)
     monkeypatch.setenv('CHROMA_FUSED_SCHEDULE', '1:2')
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -160,7 +160,8 @@ def test_spans_nest_in_the_trace(tiny, profiling, monkeypatch):
         return outer
     assert len(chains('sim.propagate', 'propagate.fused',
                       'propagate.stage')) >= 2
-    assert chains('sim.daq', 'daq.run', 'daq.block')
+    assert chains('sim.daq', 'daq.run', 'daq.draws')
+    assert chains('sim.daq', 'daq.run', 'daq.reduce')
     assert chains('sim.event', 'sim.daq')
     after, = [(e.start_ns(), e.start_ns() + e.duration_ns())
               for e in prof.profiler.kineto_results.events()

@@ -1,26 +1,28 @@
-"""Run K2 and K3 on the CPU: their CUDA sources compiled for the host.
+"""Run K2, K3 and K4 on the CPU: their CUDA sources compiled for the host.
 
     JAX_PLATFORMS=cpu python3 tools_torch/kernel_emulation.py   # ~1 minute
 
-A machine without nvcc cannot build csrc/step_kernel.cu or
-csrc/wire_walk.cu, but the host C++ compiler can build them against a
-small header that stands in for the CUDA runtime (`__device__` functions
-become inline functions). A launch runs its blocks one after another, and
-each block's threads as real threads (POSIX threads), so that what the
-kernels share within a block behaves as on the card: `__syncthreads()`
-is a barrier of the block's threads, `__syncwarp()`, the shuffles and
-`__ballot_sync` exchange values through a barrier of the warp's 32
-threads, `extern __shared__` memory is the block's own, and `atomicMin`
-on it is an atomic compare-and-swap. The wrappers then launch the host
-builds on CPU tensors through the same argument structs. This checks a
-kernel's logic (its barriers and exchanges included) against its plain
-twin before it runs on a card; it says nothing about the card's rounding
-(glibc's logf and sinf are not libdevice's), its scheduling or its speed.
+A machine without nvcc cannot build csrc/step_kernel.cu,
+csrc/wire_walk.cu or csrc/daq_kernel.cu, but the host C++ compiler can
+build them against a small header that stands in for the CUDA runtime
+(`__device__` functions become inline functions). A launch runs its
+blocks one after another, and each block's threads as real threads
+(POSIX threads), so that what the kernels share within a block behaves
+as on the card: `__syncthreads()` is a barrier of the block's threads,
+`__syncwarp()`, the shuffles and `__ballot_sync` exchange values through
+a barrier of the warp's 32 threads, `extern __shared__` memory is the
+block's own, and the atomics (`atomicMin`, `atomicAdd`, `atomicOr`) are
+the host's. The wrappers then launch the host builds on CPU tensors
+through the same arguments. This checks a kernel's logic (its barriers
+and exchanges included) against its plain twin before it runs on a card;
+it says nothing about the card's rounding (glibc's logf and sinf are not
+libdevice's), its scheduling or its speed.
 As a script it prints, step by step, the lanes where the host-built K2
 (k2_pre, then k2_post) differs from its twins on demo.tiny(), the
 all-models box of tests/test_torch_cuda.py and three wire planes, and
 whether K3 equals walk_plain. tests/test_torch_kernel_emulation.py holds
-the same comparisons.
+the same comparisons, and tests/test_torch_daq.py holds K4 to its twin
+(`host_kernels((daq_kernel,))`).
 """
 import contextlib
 import ctypes
@@ -38,8 +40,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chroma_tpu_torch.ops import (cuda_build, photon, step_kernel,  # noqa
-                                  visit_kernel, wire_kernel, wireplane)
+from chroma_tpu_torch.ops import (cuda_build, daq_kernel, photon,  # noqa
+                                  step_kernel, visit_kernel, wire_kernel,
+                                  wireplane)
 
 SHIM = r'''
 #pragma once
@@ -180,6 +183,22 @@ inline float __uint_as_float(unsigned i) { float f; std::memcpy(&f, &i, 4);
                                            return f; }
 inline unsigned __float_as_uint(float f) { unsigned i; std::memcpy(&i, &f, 4);
                                            return i; }
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4);
+                                     return i; }
+inline int atomicMin(int* p, int v) {
+    int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+    while (v < old && !__atomic_compare_exchange_n(
+               p, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {
+    }
+    return old;
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+    return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline int atomicOr(int* p, int v) {
+    return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
 '''
 
 
@@ -261,24 +280,27 @@ def build_host(source):
 
 
 @contextlib.contextmanager
-def host_kernels():
-    """Within the block, step_kernel's and wire_kernel's launches run the
-    host-built kernels on CPU tensors."""
-    k2 = build_host(step_kernel.SOURCE)
-    step_kernel.bind(k2)
-    k3 = build_host(wire_kernel.SOURCE)
-    wire_kernel.bind(k3)
-    saved = (step_kernel._lib, wire_kernel._lib, torch.cuda.device,
+def host_kernels(modules=(step_kernel, wire_kernel)):
+    """Within the block, the launches of the kernel wrappers `modules`
+    (K2's and K3's by default; daq_kernel for K4) run the host-built
+    kernels on CPU tensors."""
+    libs = []
+    for mod in modules:
+        libs.append(build_host(mod.SOURCE))
+        mod.bind(libs[-1])
+    saved = ([mod._lib for mod in modules], torch.cuda.device,
              torch.cuda.current_stream)
-    step_kernel._lib, wire_kernel._lib = k2, k3
+    for mod, lib in zip(modules, libs):
+        mod._lib = lib
     torch.cuda.device = lambda dev: contextlib.nullcontext()
     torch.cuda.current_stream = \
         lambda dev=None: types.SimpleNamespace(cuda_stream=0)
     try:
         yield
     finally:
-        (step_kernel._lib, wire_kernel._lib, torch.cuda.device,
-         torch.cuda.current_stream) = saved
+        for mod, lib in zip(modules, saved[0]):
+            mod._lib = lib
+        torch.cuda.device, torch.cuda.current_stream = saved[1:]
 
 
 def differing(got, ref, fields=None):
