@@ -10,6 +10,11 @@
 // k_lo + 1, ..., k_hi (at most MAX_WINDOW beyond the first), keeping a hit
 // only when strictly nearer than the plane's best so far; a later plane
 // wins only when strictly nearer than the earlier planes' best.
+// The wire test is not JAX's: it solves each wire about the ray's closest
+// approach to the wire's axis (t0, the offsets there, their squared length
+// d2 and the half-chord sqrt((r^2 - d2) / a)), as Chroma does in f64
+// (photon.h:115-135), where JAX's quadratic from the ray's origin loses
+// r^2 to the rounding of |w|^2 a metre away (ops/wireplane.py says more).
 // Built with --fmad=false: fmaf stands exactly where the plain code calls
 // linalg.fma (XLA's CPU contractions), every other a * b + c rounds twice.
 // min/max propagate NaN as torch.minimum / torch.maximum / clamp do (a
@@ -22,7 +27,9 @@
 // window of plane p summed over lanes:
 //   bytes = 41 N,  ops = 70 P N + 30 sum_p W_p
 // A lartpc-wires bomb (three planes at 3 mm pitch, photons from 300 mm
-// below) visits on average tens of wires a plane: the operations bound it.
+// below) visits on average tens of wires a plane, a MicroBooNE-size TPC
+// (planes 10 m long, photons metres away) hundreds: the operations bound
+// it.
 //
 // What the design does about it (wire_walk_kernel). The windows of a
 // warp's rays differ in length (0 to thousands of wires), so a thread that
@@ -153,14 +160,18 @@ __device__ __forceinline__ bool wire_test(float k, float wv0, float wn0,
     const float r2 = radius * radius;
     const float eps0 = tmax(1e-6f * r2, 1e-12f);
     const float wv = fmaf(-k, pitch, wv0);
-    const float b_coef = fmaf(wv, dv, wn0 * dn);
+    // about the closest approach t0 to the wire's axis: the offsets there
+    // are small near the wire, so d2 keeps its digits far away
+    const float t0 = -fmaf(wv, dv, wn0 * dn) * inv_a;
+    const float ev = fmaf(dv, t0, wv);
+    const float en = fmaf(dn, t0, wn0);
+    const float d2 = fmaf(ev, ev, en * en);
+    const float h2 = (r2 - d2) * inv_a;
+    bool ok = (h2 >= 0.0f) && (a_coef > 0.0f);
+    const float half = sqrtf(tmax(h2, 0.0f));
+    const float t_small = t0 - half;
+    const float t_large = t0 + half;
     const float r2_0 = fmaf(wv, wv, wn0 * wn0);
-    const float c_coef = r2_0 - r2;
-    const float disc = fmaf(b_coef, b_coef, -(a_coef * c_coef));
-    bool ok = (disc >= 0.0f) && (a_coef > 0.0f);
-    const float sq = sqrtf(tmax(disc, 0.0f));
-    const float t_small = (-b_coef - sq) * inv_a;
-    const float t_large = (-b_coef + sq) * inv_a;
     const bool outside = r2_0 > r2 + eps0;
     const bool inside = r2_0 < r2 - eps0;
     const float t = outside ? t_small : (inside ? t_large : T_MIN);

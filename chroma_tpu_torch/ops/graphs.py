@@ -75,8 +75,8 @@ KERNELS = (('k1', visit_kernel, 'launches'), ('k2', step_kernel, 'launches'),
            ('k3', wire_kernel, 'launches'))
 
 # graphs kept per geometry: well above the widths of one bomb (at most
-# CHROMA_SCHED_MAX_STAGES + 1 stages, two mop-up buckets, and step 0's
-# own graph under scatter_first), so that a repeated bomb replays them all
+# CHROMA_SCHED_MAX_STAGES + 1 stages and step 0's own graph under
+# scatter_first), so that a repeated bomb replays them all
 MAX_GRAPHS = 64
 
 _GRAPHS = {}     # id(geometry) -> (weakref to it, OrderedDict

@@ -7,9 +7,12 @@ Two routes, chosen as the JAX driver chooses them, on every device:
     tracking, an int scatter_first, CHROMA_FUSED not 0): the whole bomb
     follows a STATIC compaction schedule of (steps, width) stages. Each
     stage runs a bounded step loop that stops once every lane is
-    terminated, front-packs the survivors, recurses on a prefix slice of
-    the schedule's width, and finishes the rare survivors beyond the
-    slice (overflow) in a small mop-up bucket on their own random stream.
+    terminated, front-packs the survivors and recurses on a prefix slice
+    of the schedule's width. Where the survivors overflow that slice, the
+    boundary keeps them at the narrowest wider width a boundary before it
+    skipped, or skips itself and keeps the stage's width: an overflow
+    costs one stage at a wider width, never a second tail of its own, so
+    a bomb whose photons outlive the probe's does the same steps.
     The first bomb of a (geometry, batch, max_steps) runs the
     conservative PROBE_SCHEDULE and records its survival curve step by
     step; `_tune_schedule` derives the schedule of every later bomb from
@@ -50,11 +53,13 @@ and mark the fused route's layers: propagate.stage (one _steps call: its
 graph lookups, replays or eager steps, pushes and polls), propagate.wait
 (each host block on the card: the throttle, a stage's alive count, the
 end's abort flag), propagate.compact (the front-pack's permutation and
-gathers, and the reassembly) and propagate.mop. Its counters, each
+gathers, and the reassembly). Its counters, each
 counted once a call from counts the driver already holds on the host:
-propagate.steps and propagate.lane_steps, propagate.tail_steps (steps of
-stages no compaction follows, mop-ups' included), propagate.overflow_lanes
-(survivors beyond a stage's slice, sent to the mop-up),
+propagate.steps and propagate.lane_steps, wire.walked (the lane-steps K3
+walks: lane_steps again, on a geometry with wire planes only),
+propagate.tail_steps (steps of the stages that end the schedule),
+propagate.overflow_lanes (survivors beyond a stage's slice, kept at a
+wider width),
 propagate.blocking_reads, propagate.throttle_waits, and the graph route's
 graphs.captures and graphs.replays.
 """
@@ -83,10 +88,6 @@ CHUNK_CAP = 32
 # steps a fused stage keeps queued on the card ahead of the host's early-
 # exit poll (see _Poll)
 POLL_LAG = 4
-
-# the overflow lanes' stream: (key, OVERFLOW_SALT); beyond the mop-up
-# bucket ((key, OVERFLOW_SALT), 1) -- JAX folds the same constant in
-OVERFLOW_SALT = 0x5F3759DF
 
 
 def photon_state_from_host(photons, device):
@@ -310,12 +311,12 @@ def _tune_schedule(n, boundary_steps, alive_counts, max_steps,
     run far below full occupancy. The DP walks the modeled per-step cost
     (width + floor) and boundary cost, choosing when to compact and to
     which ladder width; a margin over the measured survivors keeps
-    overflow into the mop-up bucket rare. Emitted entries carry ABSOLUTE
+    overflow (a skipped boundary) rare. Emitted entries carry ABSOLUTE
     widths (see _resolve_width)."""
     if not len(alive_counts):
         return ()
     # the margin covers run-to-run survival jitter (< 12.5%, the count
-    # quantization below); overflow lanes finish in a small mop bucket
+    # quantization below); overflow lanes stay at a wider width
     margin = float(os.environ.get('CHROMA_SCHED_MARGIN', '1.15'))
     # quantize the measured counts to a 3-bit mantissa (round UP): raw
     # counts jitter a few % run to run, and a stable schedule keeps the
@@ -352,7 +353,7 @@ def _tune_schedule(n, boundary_steps, alive_counts, max_steps,
         # past the measured horizon the curve is extrapolated at the
         # last segment's decay rate, but the surviving tail is exactly
         # the long-lived minority whose decay SLOWS — double the margin
-        # out there rather than risk the mop-up
+        # out there rather than risk an overflow
         m = margin * (2.0 if s > horizon else 1.0)
         return max(alive_at(s) * m * n, MIN_BATCH)
 
@@ -509,6 +510,8 @@ def _steps(photons, geometry, key, start, nsteps, use_weights,
     steps = len(poll.events)
     profiler.count('propagate.steps', steps)
     profiler.count('propagate.lane_steps', steps * n)
+    if geometry.has_wireplanes:
+        profiler.count('wire.walked', steps * n)
     profiler.count('propagate.throttle_waits', poll.waits)
     if use_graphs:
         profiler.count('graphs.captures', captures)
@@ -548,7 +551,10 @@ def _fused_bomb(photons, geometry, seed, schedule, max_steps,
         tail(poll)
         return ph
 
-    def stage(ph, start, sched):
+    def stage(ph, start, sched, wider=()):
+        """The schedule's stages from absolute step `start` on `ph`.
+        `wider`: the widths of boundaries skipped before this stage, each
+        wider than the next entry's."""
         n = len(ph)
         if not sched or start >= max_steps:
             return to_end(ph, seed, start)
@@ -573,32 +579,22 @@ def _fused_bomb(photons, geometry, seed, schedule, max_steps,
                 curves.append(torch.zeros(k, dtype=torch.int64))
                 start2 += k
             return ph
+        if n_alive > m:
+            # the survivors overflow the slice: keep them at the narrowest
+            # skipped width that holds them, else skip this boundary
+            profiler.count('propagate.overflow_lanes', n_alive - m)
+            fits = [w for w in wider if n_alive <= w < n]
+            if not fits:
+                return stage(ph, start2, sched[1:], wider + (m,))
+            m = min(fits)
         with profiler.region('propagate.compact'):
             dest, perm = _ps_compact_perm(ph.alive)
             php = ph.map(lambda a: a[perm])
-        prefix = stage(php.map(lambda a: a[:m]), start2, sched[1:])
-        suffix = php.map(lambda a: a[m:])
-        if n_alive > m:
-            profiler.count('propagate.overflow_lanes', n_alive - m)
-            suffix = mop(suffix, n_alive - m, start2, m)
+        prefix = stage(php.map(lambda a: a[:m]), start2, sched[1:],
+                       tuple(w for w in wider if w < m))
         with profiler.region('propagate.compact'):
-            return _cat(prefix, suffix).map(lambda a: a[dest])
-
-    def mop(suffix, overflow, start, m):
-        """The overflow lanes (survivors beyond the slice, rare by
-        construction, front-packed at the suffix's head) finish on their
-        own stream in an m2-lane bucket; lanes beyond that bucket, if
-        any, on a stream of their own at the rest's width."""
-        okey = (seed, OVERFLOW_SALT)
-        m2 = max(min(m // 4, 1 << 16), MIN_BATCH)
-        with profiler.region('propagate.mop'):
-            if len(suffix) <= m2 * 2:
-                return to_end(suffix, okey, start)
-            pre = to_end(suffix.map(lambda a: a[:m2]), okey, start)
-            post = suffix.map(lambda a: a[m2:])
-            if overflow > m2:
-                post = to_end(post, (okey, 1), start)
-            return _cat(pre, post)
+            return _cat(prefix, php.map(lambda a: a[m:])).map(
+                lambda a: a[dest])
 
     out = stage(photons, 0, tuple(schedule))
     abort = _aborted(out)         # the end's read: also syncs the curves
@@ -777,6 +773,8 @@ def propagate(photons, geometry, seed, max_steps=100, step_chunk='auto',
         step += nsteps
         profiler.count('propagate.steps', nsteps)
         profiler.count('propagate.lane_steps', nsteps * len(current))
+        if geometry.has_wireplanes:
+            profiler.count('wire.walked', nsteps * len(current))
         if track_steps:
             tracking.append((orig_idx.cpu().numpy().copy(), current.map(
                 lambda a: a.to('cpu', copy=True))))

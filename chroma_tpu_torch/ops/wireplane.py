@@ -1,8 +1,8 @@
 """Analytic wire-plane intersection for the torch port (counterpart of
 chroma_tpu.ops.wireplane): a periodic array of parallel cylinders.
 
-The f32 reformulation of the JAX package is kept: the (u, v, n) wire frame
-is orthonormalised on the host (chroma_tpu_torch.ops.types), positions are
+The f32 set-up of the JAX package is kept: the (u, v, n) wire frame is
+orthonormalised on the host (chroma_tpu_torch.ops.types), positions are
 taken relative to the plane origin, and the candidate wire's centre
 (k * pitch) is subtracted before any squaring.
 
@@ -17,13 +17,21 @@ so it reads the batch's widest window once per plane (one sync) and runs
 that many masked iterations. Every lane sees the same k sequence either
 way, so the result is the same.
 
-The quadratic in the loop cancels badly for rays far from the plane
-(b^2 against a*c), so its rounding decides hits near a wire's edge. XLA
-on the CPU contracts `x * y + z` into fused multiply-adds there, and the
-port computes the same FMAs (in f64, exact for f32 products, then one
-rounding), which makes it bit-equal to the JAX function on the CPU. On
-the card every one of these ops is correctly rounded too, so CPU and
-CUDA results are equal.
+The wire test departs from the JAX package on purpose. JAX solves each
+wire's quadratic from the ray's origin, c = |w|^2 - r^2: a metre from a
+wire |w|^2 is 1e6 mm^2 and its f32 rounding is larger than r^2 itself
+(0.0056 mm^2 for a 150 um wire), so far rays find wires they miss and
+miss wires they meet. The port solves about the ray's closest approach
+to the wire's axis, as Chroma does in f64 (photon.h:115-135): t0 =
+-(w.d)/a, the transverse offsets at t0 (small near a wire), their squared
+length d2 computed directly, and the half-chord sqrt((r^2 - d2) / a); an
+error in t0 only slides the point along the ray, which moves d2 by a
+times its square. JAX's error grows with the square of the origin's
+distance from the wire; the port's does not.
+`x * y + z` is rounded once as a fused multiply-add where the kernel
+calls fmaf (linalg.fma: the sum in f64, exact for f32 products, then one
+rounding), and every other op is correctly rounded on the CPU and the
+card alike, so walk_plain and K3 are equal bit for bit.
 """
 from __future__ import annotations
 
@@ -156,14 +164,18 @@ def _intersect_one_plane(pos, direction, wp, ip, active):
     for _ in range(iters):
         live = valid & (k <= k_hi)
         wv = fma(-k, pitch, wv0)
-        b_coef = fma(wv, dv, wn0 * dn)
+        # about the closest approach t0 to the wire's axis: the offsets
+        # there are small near the wire, so d2 keeps its digits far away
+        t0 = -fma(wv, dv, wn0 * dn) * inv_a
+        ev = fma(dv, t0, wv)
+        en = fma(dn, t0, wn0)
+        d2 = fma(ev, ev, en * en)
+        h2 = (r2 - d2) * inv_a
+        ok = live & (h2 >= 0.0) & (a_coef > 0.0)
+        half = torch.sqrt(torch.clamp(h2, min=0.0))
+        t_small = t0 - half
+        t_large = t0 + half
         r2_0 = fma(wv, wv, wn0 * wn0)
-        c_coef = r2_0 - r2
-        disc = fma(b_coef, b_coef, -(a_coef * c_coef))
-        ok = live & (disc >= 0.0) & (a_coef > 0.0)
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
-        t_small = (-b_coef - sq) * inv_a
-        t_large = (-b_coef + sq) * inv_a
 
         outside = r2_0 > r2 + eps0
         inside = r2_0 < r2 - eps0

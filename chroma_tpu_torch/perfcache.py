@@ -23,7 +23,7 @@ tuned on the old one are no longer read.
 Fingerprints intentionally cover the geometry (BVH content, table shape)
 and not the optics tables: an optics-only change reuses the schedule
 tuned for the same shapes, which is safe (schedules are performance
-hints; overflow lanes always finish in the mop-up loops) and almost
+hints; lanes that overflow a stage's slice stay at a wider width) and almost
 always desirable (the survival curve is geometry-dominated).
 """
 from __future__ import annotations

@@ -26,6 +26,7 @@ from chroma_tpu_torch.ops.types import (build_geometry_arrays,
 
 from daq_cases import (DAQ_CASES, channel_arrays_equal, daq_case,
                        daq_geometries, daq_photons, daq_uniforms)
+from wire_cases import f64_walk, far_rays, microboone_planes
 
 torch.set_num_threads(2)
 
@@ -750,6 +751,33 @@ def test_wire_kernel_matches_plain(cuda):
     assert int(hit.sum()) > 100
     for a, b in zip(got[::2] + got[3:], ref[::2] + ref[3:]):
         torch.testing.assert_close(a[hit], b[hit], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_wire_kernel_is_exact_on_far_rays(cuda):
+    """K3 on rays 0.5 m to 3 m from three MicroBooNE-pitch planes (the
+    closest-approach solve): bit for bit its plain twin on the card, and
+    on every ray that passes no wire within 1e-3 mm of its surface the
+    float64 solve's plane (a miss as -1) and distance within 1e-3 mm."""
+    from chroma_tpu_torch.ops import wire_kernel, wireplane
+    ga = build_geometry_arrays(microboone_planes()).to(cuda)
+    pos, d = far_rays(1 << 14)
+    tpos, td = (torch.from_numpy(x).to(cuda) for x in (pos, d))
+    active = torch.ones(len(pos), dtype=torch.bool, device=cuda)
+    got = wire_kernel.walk(tpos, td, ga, active)
+    ref = wireplane.walk_plain(tpos, td, ga, active)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    t64, plane64, _, _, clear = f64_walk(pos, d, ga.wireplanes.to('cpu'))
+    sure = clear > 1e-3
+    assert sure.mean() > 0.98
+    plane = got[1].cpu().numpy()
+    np.testing.assert_array_equal(plane[sure], plane64[sure])
+    hit = sure & (plane64 >= 0)
+    assert hit.sum() > 1000
+    np.testing.assert_allclose(got[0].cpu().numpy()[hit], t64[hit], rtol=0,
+                               atol=1e-3)
 
 
 @pytest.mark.cuda

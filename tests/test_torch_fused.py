@@ -5,7 +5,8 @@ Held exactly, where the arithmetic is deterministic: the schedule helpers
 and the tuner (with the JAX package's cost constants), the perf cache's
 fingerprints, and the route without compaction (CHROMA_FUSED_SCHEDULE=
 none equals run_steps bit for bit). Held in distribution, because the two
-packages draw from different generators: the mop-up of overflow lanes and
+packages draw from different generators: the lanes that overflow a
+stage's slice (the port runs them on at a wider width, JAX mops them up) and
 Simulation's detected fraction, within 5 sigma of the binomial spread of
 the difference of two independent runs. Also: the probe-then-tune cycle,
 and the port's perf cache never reading an entry the JAX package wrote.
@@ -221,10 +222,12 @@ def _gray_photons(n):
 def test_fused_bomb_suffix_mop(monkeypatch):
     """The port's counterpart of test_perf_tuning.test_fused_bomb_suffix_mop:
     schedule 1:8,8:2 compacts to 1/8 after one step while most photons are
-    alive, so most survivors take the overflow mop (at 16,384 lanes, so
-    that the 1/8 slice is above SCHED_FLOOR; 8:2 then trims away). Every
-    lane comes back terminated and accounted for, and the flag counts agree
-    with JAX's propagate under the same schedule within 5 sigma."""
+    alive (at 16,384 lanes, so that the 1/8 slice is above SCHED_FLOOR;
+    8:2 then trims away). The survivors overflow the slice: the port skips
+    the boundary and runs them on at the full width, where JAX mops them
+    up. Every lane comes back terminated and accounted for, and the flag
+    counts agree with JAX's propagate under the same schedule within 5
+    sigma."""
     from chroma_tpu_torch import event
     from chroma_tpu_torch.ops.photon import PhotonState
     import jax.numpy as jnp
@@ -254,7 +257,7 @@ def test_fused_bomb_suffix_mop(monkeypatch):
     term = (event.SURFACE_DETECT | event.BULK_ABSORB
             | event.SURFACE_ABSORB | event.NO_HIT | event.NAN_ABORT)
     assert ((fl & event.NAN_ABORT) == 0).all()
-    assert ((fl & term) != 0).all(), 'unterminated lanes after mop'
+    assert ((fl & term) != 0).all(), 'unterminated lanes after overflow'
     # no lane lost or doubled: lanes keep their input order and photons
     np.testing.assert_array_equal(res.wavelength.numpy(),
                                   ps.wavelength.numpy())
@@ -387,7 +390,7 @@ def test_simulation_fused_matches_chunked_and_jax(monkeypatch, fresh_cache,
     """Simulation(demo.tiny()): the detected fraction of the fused route
     (the default), of the chunked route (CHROMA_FUSED=0) and of the JAX
     package's fused Simulation under the same schedule (one compaction to
-    half the lanes, then its overflow mop) agree within 5 sigma."""
+    half the lanes) agree within 5 sigma."""
     from chroma_tpu.sim import Simulation as JaxSimulation
     import chroma_tpu_torch
     monkeypatch.setenv('CHROMA_FUSED_SCHEDULE', '1:2')

@@ -96,7 +96,7 @@ def test_chunked_driver_compacts_and_writes_back(tiny, monkeypatch):
 
 def test_fused_driver_compacts_and_writes_back(tiny, monkeypatch):
     """The fused bomb, by a fixed schedule (a front-pack to half the lanes
-    after step 1, the survivors beyond them in the mop-up), does the same:
+    after step 1), does the same:
     both runs take that schedule, where an unpinned first run would probe
     and the second take the tuned schedule, which draws otherwise."""
     monkeypatch.delenv('CHROMA_FUSED', raising=False)

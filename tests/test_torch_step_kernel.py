@@ -49,7 +49,8 @@ from test_torch_host import (J, T, fresh_perf_cache,  # noqa: F401
                              same_native_kit)
 from test_torch_photon import FLOAT_FIELDS, INT_FIELDS, jax_blocks
 from test_torch_photon import torch_state
-from test_torch_surfaces import all_models_detector, assert_lanes_agree, bomb
+from test_torch_surfaces import (all_models_detector, assert_lanes_agree,
+                                 bomb, wire_verdicts)
 from test_torch_wireplane import lartpc
 
 torch.set_num_threads(2)
@@ -230,7 +231,8 @@ def test_plain_twin_is_the_step_and_matches_jax(kind):
         injected = _composed(ts0, ta, DrawPool(N, 'cpu',
                                                blocks=jax_blocks(step_key, N)))
         js = step(js, ga, step_key)
-        agree = assert_lanes_agree(js, injected)
+        agree = assert_lanes_agree(js, injected,
+                                   decided=wire_verdicts(ga, ta, ts0))
         print(kind, 'step', s, 'lanes differing from JAX:',
               int((~agree).sum()))
     if kind == 'wires':

@@ -169,36 +169,76 @@ def test_spans_nest_in_the_trace(tiny, profiling, monkeypatch):
     assert all(r[1] <= after[0] or after[1] <= r[0] for r in ranges)
 
 
-def test_stage_counters_add_up(gray_box, profiling, monkeypatch):
-    """propagate.steps is the sum of the stages' steps (one
-    propagate.stage span each); with schedule 1:8 every step after the
-    first stage is a tail step (a mop-up's or the last stage's), and the
-    survivors beyond the 1/8 slice are counted as overflow lanes. The CPU
-    takes no graph route and makes no blocking read on the card."""
-    monkeypatch.setenv('CHROMA_FUSED_SCHEDULE', '1:8')
+def _stage_widths(monkeypatch):
+    "Record each _steps call's (width, steps run)."
     stages = []
     steps = tprop._steps
 
     def counted(*args, **kwargs):
         out = steps(*args, **kwargs)
-        stages.append(len(out[1].events))
+        stages.append((len(args[0]), len(out[1].events)))
         return out
     monkeypatch.setattr(tprop, '_steps', counted)
+    return stages
+
+
+def test_stage_counters_add_up(gray_box, profiling, monkeypatch):
+    """propagate.steps is the sum of the stages' steps (one
+    propagate.stage span each); with schedule 1:8 the survivors of the
+    first step overflow the 1/8 slice: they are counted as overflow
+    lanes, the boundary is skipped (no compaction, no tail of their own)
+    and every later step is the last stage's tail, at the full width. The
+    CPU takes no graph route and makes no blocking read on the card, and a
+    geometry without wire planes counts no wire.walked."""
+    monkeypatch.setenv('CHROMA_FUSED_SCHEDULE', '1:8')
+    widths = _stage_widths(monkeypatch)
     n = 16384
     state = tprop.photon_state_from_host(photon_bomb(n, 450.0, (0, 0, 0)),
                                          'cpu')
     assert tprop.schedule_for(gray_box, n, 30) == ((1, 8),)
     tprop.propagate(state, gray_box, seed=6, max_steps=30)
     c = profiling.counters
-    assert len(stages) >= 3 and stages[0] == 1
+    stages = [k for _, k in widths]
+    assert [w for w, _ in widths] == [n, n] and stages[0] == 1
     assert c['propagate.steps'] == sum(stages)
-    assert c['propagate.lane_steps'] >= c['propagate.steps']
+    assert c['propagate.lane_steps'] == n * sum(stages)
     assert c['propagate.tail_steps'] == sum(stages) - 1
     assert c['propagate.tail_steps'] <= c['propagate.steps']
     assert c['propagate.overflow_lanes'] > 0
     assert profiling.regions['propagate.stage'].calls == len(stages)
-    assert profiling.regions['propagate.mop'].calls == 1
-    assert profiling.regions['propagate.compact'].calls == 2
+    assert 'propagate.compact' not in profiling.regions
+    assert 'propagate.mop' not in profiling.regions
     for name in ('graphs.captures', 'graphs.replays',
-                 'propagate.blocking_reads'):
+                 'propagate.blocking_reads', 'wire.walked'):
         assert name not in c, name
+
+
+def test_overflow_compacts_to_a_skipped_width(gray_box, profiling,
+                                              monkeypatch):
+    """Survivors that overflow a stage's slice stay at the width of the
+    stage; at the next boundary they compact to the narrowest skipped
+    width that holds them. Schedule 1:8192,1:4096 on 16,384 lanes in the
+    gray box (about 65% outlive a step): step 1 leaves more than 8,192
+    alive (skipped), step 2 more than 4,096 and at most 8,192 (compacted
+    to 8,192), and the tail runs there. Every lane ends terminated, at its
+    input index."""
+    monkeypatch.setenv('CHROMA_FUSED_SCHEDULE', '1:8192,1:4096')
+    widths = _stage_widths(monkeypatch)
+    n = 16384
+    state = tprop.photon_state_from_host(photon_bomb(n, 450.0, (0, 0, 0)),
+                                         'cpu')
+    assert tprop.schedule_for(gray_box, n, 60) == ((1, 8192), (1, 4096))
+    out = tprop.propagate(state, gray_box, seed=6, max_steps=60)
+    assert [w for w, _ in widths] == [n, n, 8192]
+    assert [k for _, k in widths][:2] == [1, 1]
+    c = profiling.counters
+    assert c['propagate.overflow_lanes'] > (n - 8192) // 2
+    assert profiling.regions['propagate.compact'].calls == 2
+    assert c['propagate.tail_steps'] == widths[2][1]
+    np.testing.assert_array_equal(out.wavelength.numpy(),
+                                  state.wavelength.numpy())
+    term = (chroma_tpu_torch.event.SURFACE_DETECT
+            | chroma_tpu_torch.event.BULK_ABSORB
+            | chroma_tpu_torch.event.SURFACE_ABSORB
+            | chroma_tpu_torch.event.NO_HIT)
+    assert ((out.flags.numpy() & term) != 0).all()

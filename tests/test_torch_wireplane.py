@@ -4,7 +4,10 @@ On the tests/test_wireplane.py geometry (wires along x at 3 mm pitch,
 0.15 mm radius, in a 2 m liquid-argon box) and on a three-plane U/V/Y
 anode (wires at 0 and +-60 degrees, 3 mm apart): build_wireplane_arrays
 gives the JAX package's arrays bit for bit, and intersect_wireplanes gives
-the same hits, distances (rtol 1e-5), normals, media and surfaces. The port
+a float64 solve's hits of every wire (tests/wire_cases.py), and the JAX
+package's hits, distances, normals, media and surfaces wherever those are
+the float64 solve's too: the port's wire test departs from JAX's f32
+quadratic on purpose. The port
 also absorbs photons aimed at wires and lets those aimed between them
 through, as the JAX package's slow propagation test checks."""
 import numpy as np
@@ -16,11 +19,12 @@ from chroma_tpu.ops import types as jtypes
 from chroma_tpu.ops.wireplane import intersect_wireplanes as jax_wires
 from chroma_tpu_torch.ops import types as ttypes
 from chroma_tpu_torch.ops.propagate import photon_state_from_host, propagate
-from chroma_tpu_torch.ops.wireplane import (candidate_windows,
+from chroma_tpu_torch.ops.wireplane import (candidate_windows, classify,
                                             intersect_wireplanes)
 
 from test_torch_host import (J, T, fresh_perf_cache,  # noqa: F401
                              same_native_kit)
+from wire_cases import f64_walk
 
 torch.set_num_threads(2)
 
@@ -96,27 +100,52 @@ def _rays(kind, n=4096):
 
 @pytest.mark.parametrize('kind', ['head_on', 'oblique', 'isotropic'])
 def test_intersect_matches_jax(planes, kind):
+    """float64 decides: the port's hits are a float64 solve's of every
+    wire (hit or miss; distance within 1e-4 mm, the rounding of the rays'
+    f32 plane coordinates; normal within 1e-3), classified; and on the
+    rays where the JAX package's hit is the float64 solve's too (the same
+    hit or miss, the distance within 1e-4 mm), the port's is JAX's: the
+    same hit, distance and normal within twice that, media, surface and
+    side equal. JAX's f32 quadratic from the ray's origin is off on the
+    others."""
     name, ga, ta = planes
     pos, d = _rays(kind)
     n = len(pos)
     active = np.ones(n, bool)
     if kind != 'head_on':
         active[::11] = False
-    ref = jax.jit(lambda p, q, a: jax_wires(p, q, ga, a))(pos, d, active)
+    jref = jax.jit(lambda p, q, a: jax_wires(p, q, ga, a))(pos, d, active)
     got = intersect_wireplanes(torch.from_numpy(pos), torch.from_numpy(d),
                                ta, torch.from_numpy(active))
-    hit = np.asarray(ref.hit)
-    np.testing.assert_array_equal(got.hit.numpy(), hit)
+    t64, plane64, vn, nn, _ = f64_walk(pos, d, ta.wireplanes, active)
+    f64 = classify((torch.from_numpy(t64.astype(np.float32)),
+                    torch.from_numpy(plane64.astype(np.int32)),
+                    torch.from_numpy(vn.astype(np.float32)),
+                    torch.from_numpy(nn.astype(np.float32))),
+                   torch.from_numpy(d), ta.wireplanes)
+    f64.distance = torch.from_numpy(t64)
+    jhit = np.asarray(jref.hit)
+    right = (jhit == (plane64 >= 0)) & (np.abs(np.where(
+        jhit, np.asarray(jref.distance) - t64, 0.0)) <= 1e-4)
+    assert right.mean() > 0.5
+    for ref, lanes, atol in ((f64, np.ones(n, bool), (1e-4, 1e-3)),
+                             (jref, right, (2e-4, 2e-3))):
+        hit = np.asarray(ref.hit)
+        np.testing.assert_array_equal(got.hit.numpy()[lanes], hit[lanes])
+        hit = hit & lanes
+        np.testing.assert_allclose(got.distance.numpy()[hit],
+                                   np.asarray(ref.distance)[hit], rtol=0,
+                                   atol=atol[0])
+        np.testing.assert_allclose(got.normal.numpy()[hit],
+                                   np.asarray(ref.normal)[hit], rtol=0,
+                                   atol=atol[1])
+        for field in ('material1', 'material2', 'surface',
+                      'inside_to_outside'):
+            np.testing.assert_array_equal(
+                getattr(got, field).numpy()[hit],
+                np.asarray(getattr(ref, field))[hit], err_msg=field)
+    hit = got.hit.numpy()
     assert hit.sum() > 0 and not hit[~active].any()
-    np.testing.assert_allclose(got.distance.numpy()[hit],
-                               np.asarray(ref.distance)[hit], rtol=1e-5)
-    np.testing.assert_allclose(got.normal.numpy()[hit],
-                               np.asarray(ref.normal)[hit], rtol=1e-5,
-                               atol=1e-6)
-    for field in ('material1', 'material2', 'surface', 'inside_to_outside'):
-        np.testing.assert_array_equal(getattr(got, field).numpy()[hit],
-                                      np.asarray(getattr(ref, field))[hit],
-                                      err_msg=field)
     if (name, kind) == ('single', 'head_on'):
         np.testing.assert_allclose(got.distance[0].item(), 100.0 - 0.15,
                                    rtol=1e-4)
