@@ -248,8 +248,7 @@ class LazyHits(event.Photons):
     def _materialize(self):
         from chroma_tpu_torch.ops.propagate import photon_state_to_host
         sub, ch = self._dev
-        host = photon_state_to_host(sub, channel=np.maximum(
-            ch.cpu().numpy(), 0).astype(np.uint32))[:self._n]
+        host = photon_state_to_host(sub, channel=ch)[:self._n]
         for f in self._FIELDS:
             setattr(self, f, getattr(host, f))
         self._dev = None

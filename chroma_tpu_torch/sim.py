@@ -224,10 +224,8 @@ class Simulation:
                 channel = None
                 if want_hits:
                     with profiler.region('sim.channels'):
-                        channel = np.maximum(
-                            daq_ops.photon_channels_device(
-                                result, self.gpu_geometry).cpu().numpy(),
-                            0).astype(np.uint32)
+                        channel = daq_ops.photon_channels_device(
+                            result, self.gpu_geometry)
                 photons_end = photon_state_to_host(result, channel=channel)
 
         for i, ev in enumerate(batch_events):

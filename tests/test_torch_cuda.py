@@ -1048,3 +1048,48 @@ def test_daq_kernel_generator_path(cuda, daq_geos, ndaq):
         assert gen.get_offset() == ref_gen.get_offset()
         assert torch.equal(torch.rand(64, generator=gen, device=cuda),
                            torch.rand(64, generator=ref_gen, device=cuda))
+
+
+@pytest.mark.cuda
+def test_pinned_readback_matches_pageable_and_reuses_its_block(
+        cuda, prof_counters, monkeypatch):
+    """A 2^20-lane bomb on demo.tiny() propagated on the card and read
+    back with a device channel: every field as the pageable route (.cpu()
+    a field) gives it, bit for bit, in 64 B a lane. Event B's readback
+    while A's arrays are held grows the pinned pool by one block and
+    leaves A's arrays as they were; once A's are dropped, C's readback
+    takes A's block and grows nothing."""
+    from chroma_tpu_torch.ops import propagate as P
+    from test_torch_readback import assert_bit_equal, pageable
+    monkeypatch.setenv('CHROMA_FUSED_SCHEDULE', '1:2,2:2')
+    n = 1 << 20
+    res = P.propagate(_device_bomb(n, 11, cuda), _tiny_on(cuda), (4, 2),
+                      max_steps=100)
+    ch = torch.where(res.last_hit_triangle >= 0,
+                     res.last_hit_triangle % 37, -1).to(torch.int32)
+    ev_b = res.map(lambda a: a.flip(0))
+
+    def want(state, channel):
+        return pageable(state, np.maximum(channel.cpu().numpy(), 0)
+                        .astype(np.uint32))
+    want_a, want_b = want(res, ch), want(ev_b, ch.flip(0))
+    assert (ch < 0).any() and (ch > 0).any()
+
+    def readback(state, channel):
+        grown = prof_counters['readback.new_blocks']
+        host = P.photon_state_to_host(state, channel=channel)
+        return host, prof_counters['readback.new_blocks'] - grown
+    got_a, _ = readback(res, ch)
+    assert_bit_equal(got_a, want_a)
+    assert prof_counters['readback.bytes'] == 64 * n
+    got_b, grown = readback(ev_b, ch.flip(0))
+    assert grown == 1
+    assert_bit_equal(got_a, want_a)
+    assert_bit_equal(got_b, want_b)
+    del got_a
+    torch.cuda.synchronize()    # the freed block's stream events complete
+    got_c, grown = readback(res, ch)
+    assert grown == 0
+    assert_bit_equal(got_c, want_a)
+    assert_bit_equal(got_b, want_b)
+    assert prof_counters['readback.calls'] == 3

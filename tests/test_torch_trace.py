@@ -22,6 +22,7 @@ from chroma_tpu_torch.ops.types import build_geometry_arrays
 from chroma_tpu_torch.profiler import profiler
 
 from test_torch_host import fresh_perf_cache  # noqa: F401
+from test_torch_readback import seeded_state
 
 torch.set_num_threads(2)
 
@@ -242,3 +243,25 @@ def test_overflow_compacts_to_a_skipped_width(gray_box, profiling,
             | chroma_tpu_torch.event.SURFACE_ABSORB
             | chroma_tpu_torch.event.NO_HIT)
     assert ((out.flags.numpy() & term) != 0).all()
+
+
+@pytest.mark.parametrize('enabled', [True, False])
+def test_readback_counters(enabled, monkeypatch):
+    """One readback.calls a readback; readback.bytes 60 a lane, 64 with a
+    device channel (cur_mat stays on the device); no pinned pool on the
+    CPU, so readback.new_blocks stays 0. Off, nothing is counted."""
+    monkeypatch.setattr(profiler, 'enabled', enabled)
+    monkeypatch.setattr(profiler, 'counters', type(profiler.counters)(int))
+    n = 1000
+    state = seeded_state(n, 3)
+    tprop.photon_state_to_host(state)
+    c = profiler.counters
+    if not enabled:
+        tprop.photon_state_to_host(state, channel=state.last_hit_triangle)
+        assert not c
+        return
+    assert c['readback.calls'] == 1 and c['readback.bytes'] == 60 * n
+    tprop.photon_state_to_host(state, channel=state.last_hit_triangle)
+    assert c['readback.calls'] == 2
+    assert c['readback.bytes'] == 60 * n + 64 * n
+    assert c['readback.new_blocks'] == 0
