@@ -59,8 +59,6 @@
 // index (so it reads the lane's own uniforms, and the arithmetic and the
 // result are those of one thread a lane, bit for bit). A warp of phase B
 // runs one model except at the at most five class boundaries of a block.
-// The one-thread-a-lane design stays as step_thread_kernel
-// (chroma_step_thread), launched only to time the two against each other.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC -o libstep_kernel.so
@@ -1065,23 +1063,6 @@ __device__ void at_boundary(const Ctx& c, Photon& p, const State& s,
     p.cur_mat = crossed ? s.mat2 : s.mat1;
 }
 
-// ------------------------------------------------ k2_post, the first design
-
-// One thread a lane (the first design), launched only to time the regrouped
-// kernel against it.
-__global__ void __launch_bounds__(128)
-step_thread_kernel(const __grid_constant__ StepArgs a) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= a.n) return;
-    const Ctx c(a, lane);
-    Photon p = load_photon(a, lane);
-    State s;
-    const int cls = to_boundary(c, p, s);
-    if (cls >= 0) at_boundary(c, p, s, cls);
-    store_moved(a, lane, p);
-    store_turned(a, lane, p);
-}
-
 // ------------------------------------------ k2_post, regrouped by path
 
 // What phase B reads of a boundary lane, in shared memory by slot:
@@ -1247,7 +1228,6 @@ extern "C" int chroma_step_load() {
     cudaFuncAttributes attr;
     int err = (int)cudaFuncGetAttributes(&attr, step_kernel);
     if (!err) err = (int)cudaFuncGetAttributes(&attr, pre_kernel);
-    if (!err) err = (int)cudaFuncGetAttributes(&attr, step_thread_kernel);
     return err;
 }
 
@@ -1264,15 +1244,6 @@ extern "C" int chroma_step(StepArgs args, int block, void* stream) {
         return (int)cudaErrorInvalidValue;
     step_kernel<<<(args.n + block - 1) / block, block,
                   post_smem_bytes(block), (cudaStream_t)stream>>>(args);
-    return (int)cudaGetLastError();
-}
-
-// The same by the first design, one thread a lane (timing only).
-extern "C" int chroma_step_thread(StepArgs args, void* stream) {
-    if (args.n <= 0) return (int)cudaSuccess;
-    const int threads = 128;
-    step_thread_kernel<<<(args.n + threads - 1) / threads, threads, 0,
-                         (cudaStream_t)stream>>>(args);
     return (int)cudaGetLastError();
 }
 

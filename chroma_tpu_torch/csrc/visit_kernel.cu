@@ -30,13 +30,13 @@
 // the operations, ~0.1 ms; memory is ~20 us.
 //
 // What the design does about it:
-// * Requests. The first port of this kernel (visit_thread_kernel below,
-//   kept as the yardstick) gave each thread a ray and looped over the 32
-//   children: six 4-byte loads a child from the thread's own row, so every
-//   load of a warp touched up to 32 cache lines. Here lane c reads child
-//   c's six bound words: neighbouring lanes read neighbouring words, six
-//   coalesced requests a row (bf16 packs two children a word, so lanes c
-//   and c + 16 share theirs); leaf lane k reads triangle k. Row header
+// * Requests. The first design of this kernel gave each thread a ray and
+//   looped over the 32 children: six 4-byte loads a child from the
+//   thread's own row, so every load of a warp touched up to 32 cache
+//   lines. Here lane c reads child c's six bound words: neighbouring lanes
+//   read neighbouring words, six coalesced requests a row (bf16 packs two
+//   children a word, so lanes c and c + 16 share theirs); leaf lane k
+//   reads triangle k. Row header
 //   words (tag, rotation, first child) are one broadcast load each.
 // * Divergence. A group of lanes holds one ray, so every branch (node kind,
 //   descend or pop, the end of the walk) is uniform across the group; the
@@ -83,7 +83,6 @@ constexpr int TAG_INSTANCE = 2;
 constexpr int INST_B0 = 14;
 constexpr int LEAF_STRIDE = 11;
 constexpr int IBIG = 127;
-constexpr int MAX_D = 32;
 constexpr int BLOCK = 128;
 constexpr uint32_t INF_BITS = 0x7f800000u;
 
@@ -97,18 +96,6 @@ constexpr float NEG_EPS = (float)(-1e-6);
 constexpr float ONE_EPS = (float)(1.0 + 1e-6);
 constexpr float FLT_EPS = (float)1.19209290e-07;
 constexpr float NUDGE = (float)1e-25;
-
-// torch.minimum / torch.maximum semantics: a NaN operand gives NaN (fminf
-// and fmaxf would drop it, and padding children would then hit)
-__device__ __forceinline__ float nmin(float a, float b) {
-    return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000)
-                                  : (a < b ? a : b);
-}
-
-__device__ __forceinline__ float nmax(float a, float b) {
-    return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000)
-                                  : (a > b ? a : b);
-}
 
 __device__ __forceinline__ int as_int(float x) { return __float_as_int(x); }
 
@@ -125,9 +112,11 @@ __device__ __forceinline__ float dot3(float a, float b, float c, float d,
     return fmaf(e, f, fmaf(a, b, c * d));
 }
 
-// the same NaN propagation in one instruction each (sm_80+). They may differ
-// from nmin / nmax only on zeros of opposite sign, which compare equal; the
-// walk uses tmin's bits only with the sign bit cleared
+// torch.minimum / torch.maximum semantics in one instruction each (sm_80+):
+// a NaN operand gives NaN (fminf and fmaxf would drop it, and padding
+// children would then hit). On zeros of opposite sign, which compare equal,
+// they may return either; the walk uses tmin's bits only with the sign bit
+// cleared
 __device__ __forceinline__ float pmin(float a, float b) {
     float r;
     asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
@@ -138,28 +127,6 @@ __device__ __forceinline__ float pmax(float a, float b) {
     float r;
     asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
     return r;
-}
-
-template <int FMT, int F>
-__device__ __forceinline__ void child_bounds(const float* row, int c,
-                                             float lo[3], float hi[3]) {
-    if (FMT == FMT_BF16) {
-        constexpr int PW = F / 2;
-        const int w = c % PW;
-#pragma unroll
-        for (int g = 0; g < 6; ++g) {
-            const uint32_t u = (uint32_t)as_int(row[INST_B0 + g * PW + w]);
-            const uint32_t bits = c < PW ? (u << 16) : (u & 0xFFFF0000u);
-            const float v = __uint_as_float(bits);
-            if (g < 3) lo[g] = v; else hi[g - 3] = v;
-        }
-    } else {
-#pragma unroll
-        for (int g = 0; g < 6; ++g) {
-            const float v = row[INST_B0 + g * F + c];
-            if (g < 3) lo[g] = v; else hi[g - 3] = v;
-        }
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -555,264 +522,6 @@ void launch_warp(const Query& q, int* next_ray, cudaStream_t stream) {
     visit_warp_kernel<FMT, F, G><<<blocks, BLOCK, 0, stream>>>(q, next_ray);
 }
 
-// ---------------------------------------------------------------------------
-// The first design: one thread per ray (the yardstick,
-// chroma_visit_inst_thread)
-// ---------------------------------------------------------------------------
-
-template <int FMT, int F>
-__global__ void __launch_bounds__(128)
-visit_thread_kernel(const float* __restrict__ rows, int width, int leaf_size,
-                  int depth_max, int fc_col,
-                  const float* __restrict__ origin,
-                  const float* __restrict__ direction,
-                  const int* __restrict__ last_hit,
-                  const uint8_t* __restrict__ mask,
-                  const float* __restrict__ best_limit, int n,
-                  int* __restrict__ out_tri, float* __restrict__ out_dist,
-                  int* __restrict__ out_code, float* __restrict__ out_normal,
-                  int* __restrict__ out_iid, int* __restrict__ out_visits) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-
-    float world[6];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-        world[j] = origin[3 * i + j];
-        world[3 + j] = direction[3 * i + j];
-    }
-    float loc[6];
-#pragma unroll
-    for (int j = 0; j < 6; ++j) loc[j] = world[j];
-
-    const int excl = last_hit ? last_hit[i] : -1;
-    int cur = (mask == nullptr || mask[i]) ? 0 : -1;
-    int depth = 0;
-    int d_inst = IBIG;
-    int tbase = 0;
-    int iid = 0;
-    int b_tri = -1;
-    float b_d = best_limit ? best_limit[i] : __int_as_float(0x7f800000);
-    int b_code = 0;
-    float b_n[3] = {0.0f, 0.0f, 0.0f};
-    int b_iid = 0;
-    int visits = 0;
-    int bases[MAX_D];
-    uint32_t masks[MAX_D];
-#pragma unroll
-    for (int d = 0; d < MAX_D; ++d) {
-        bases[d] = 0;
-        masks[d] = 0u;
-    }
-
-    while (cur >= 0) {
-        ++visits;
-        const float* row = rows + (size_t)cur * (size_t)width;
-        const int tag = as_int(row[width - 1]);
-        const bool internal = tag == TAG_INTERNAL;
-        const bool at_leaf = tag == TAG_LEAF;
-        const bool is_inst = tag == TAG_INSTANCE;
-
-        // instance entry: rotate the world ray into the instance frame
-        float entered[6];
-        float o[3], dv[3];
-        if (is_inst) {
-            const float px = world[0] - row[9];
-            const float py = world[1] - row[10];
-            const float pz = world[2] - row[11];
-#pragma unroll
-            for (int r = 0; r < 3; ++r) {
-                entered[r] = dot3(row[3 * r], px, row[3 * r + 1], py,
-                                  row[3 * r + 2], pz);
-                entered[3 + r] = dot3(row[3 * r], world[3], row[3 * r + 1],
-                                      world[4], row[3 * r + 2], world[5]);
-            }
-#pragma unroll
-            for (int j = 0; j < 3; ++j) {
-                o[j] = entered[j];
-                dv[j] = entered[3 + j];
-            }
-        } else {
-#pragma unroll
-            for (int j = 0; j < 3; ++j) {
-                o[j] = loc[j];
-                dv[j] = loc[3 + j];
-            }
-        }
-
-        const bool sweeping = internal || is_inst;
-        uint32_t hitmask = 0u;
-        int nearest = 0;
-        if (sweeping) {
-            float inv[3], neg[3];
-#pragma unroll
-            for (int j = 0; j < 3; ++j) {
-                inv[j] = 1.0f / (dv[j] == 0.0f ? NUDGE : dv[j]);
-                neg[j] = -o[j] * inv[j];
-            }
-            float q_s[3], q_a[3];
-            if (FMT == FMT_Q8) {
-#pragma unroll
-                for (int j = 0; j < 3; ++j) {
-                    q_s[j] = row[INST_B0 + 3 + j] * inv[j];
-                    q_a[j] = row[INST_B0 + j] * inv[j] + neg[j];
-                }
-            }
-            float tnear = __int_as_float(0x7f800000);
-#pragma unroll 4
-            for (int c = 0; c < F; ++c) {
-                float t0[3], t1[3];
-                bool q_ok = true;
-                if (FMT == FMT_Q8) {
-                    constexpr int QW = F / 4;
-                    float qb[6];
-#pragma unroll
-                    for (int g = 0; g < 6; ++g) {
-                        const uint32_t u = (uint32_t)as_int(
-                            row[INST_B0 + 6 + g * QW + (c >> 2)]);
-                        qb[g] = (float)((u >> ((c & 3) * 8)) & 0xFFu);
-                    }
-                    q_ok = qb[0] <= qb[3];
-#pragma unroll
-                    for (int j = 0; j < 3; ++j) {
-                        t0[j] = qb[j] * q_s[j] + q_a[j];
-                        t1[j] = qb[3 + j] * q_s[j] + q_a[j];
-                    }
-                } else {
-                    float lo[3], hi[3];
-                    child_bounds<FMT, F>(row, c, lo, hi);
-#pragma unroll
-                    for (int j = 0; j < 3; ++j) {
-                        t0[j] = lo[j] * inv[j] + neg[j];
-                        t1[j] = hi[j] * inv[j] + neg[j];
-                    }
-                }
-                const float smx = nmin(t0[0], t1[0]);
-                const float bgx = nmax(t0[0], t1[0]);
-                const float smy = nmin(t0[1], t1[1]);
-                const float bgy = nmax(t0[1], t1[1]);
-                const float smz = nmin(t0[2], t1[2]);
-                const float bgz = nmax(t0[2], t1[2]);
-                const float tmin = nmax(nmax(smx, smy), nmax(smz, 0.0f));
-                const float tmax = nmin(nmin(bgx, bgy), bgz);
-                const bool hit = (tmin <= tmax) && (tmin <= b_d) && q_ok;
-                if (hit) {
-                    hitmask |= 1u << c;
-                    // nearest-first descent; ties go to the lowest child
-                    if (tmin < tnear) {
-                        tnear = tmin;
-                        nearest = c;
-                    }
-                }
-            }
-        }
-
-        if (at_leaf) {
-            for (int k = 0; k < leaf_size; ++k) {
-                const float* tr = row + LEAF_STRIDE * k;
-                const float v0x = tr[0], v0y = tr[1], v0z = tr[2];
-                const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
-                const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
-                const int tri = as_int(tr[9]);
-                const int code = as_int(tr[10]);
-                const int tri_g = tri + tbase;
-                const float hx = cross_term(dv[1], e2z, dv[2], e2y);
-                const float hy = cross_term(dv[2], e2x, dv[0], e2z);
-                const float hz = cross_term(dv[0], e2y, dv[1], e2x);
-                const float a = dot3(e1x, hx, e1y, hy, e1z, hz);
-                const bool parallel = fabsf(a) <= FLT_EPS;
-                const float finv = 1.0f / (parallel ? 1.0f : a);
-                const float sx = o[0] - v0x, sy = o[1] - v0y, sz = o[2] - v0z;
-                const float u = finv * dot3(sx, hx, sy, hy, sz, hz);
-                const float qx = cross_term(sy, e1z, sz, e1y);
-                const float qy = cross_term(sz, e1x, sx, e1z);
-                const float qz = cross_term(sx, e1y, sy, e1x);
-                const float v = finv * dot3(dv[0], qx, dv[1], qy, dv[2], qz);
-                const float t = finv * dot3(e2x, qx, e2y, qy, e2z, qz);
-                const bool ok = !parallel && u >= NEG_EPS && u <= ONE_EPS
-                    && v >= NEG_EPS && u + v <= ONE_EPS && t > EPS
-                    && isfinite(t) && tri >= 0 && tri_g != excl;
-                if (ok && t < b_d) {
-                    b_d = t;
-                    b_tri = tri_g;
-                    b_code = code;
-                    b_n[0] = cross_term(e1y, e2z, e1z, e2y);
-                    b_n[1] = cross_term(e1z, e2x, e1x, e2z);
-                    b_n[2] = cross_term(e1x, e2y, e1y, e2x);
-                    b_iid = iid;
-                }
-            }
-        }
-
-        const bool will = sweeping && hitmask != 0u;
-        if (will) {
-            const int first_child = as_int(row[fc_col]);
-            if (is_inst) {
-#pragma unroll
-                for (int j = 0; j < 6; ++j) loc[j] = entered[j];
-                d_inst = depth;
-                tbase = as_int(row[12]);
-                iid = as_int(row[13]);
-            }
-            if (depth < depth_max) {
-                bases[depth] = first_child;
-                masks[depth] = hitmask & ~(1u << nearest);
-            }
-            cur = first_child + nearest;
-            depth += 1;
-        } else {
-            // pop: jump straight to the highest pending sibling group
-            int top = -1;
-            for (int d = (depth < depth_max ? depth : depth_max) - 1; d >= 0;
-                 --d) {
-                if (masks[d] != 0u) {
-                    top = d;
-                    break;
-                }
-            }
-            if (top >= 0) {
-                const uint32_t pm = masks[top];
-                masks[top] = pm & (pm - 1u);
-                cur = bases[top] + (__ffs((int)pm) - 1);
-                depth = top + 1;
-            } else {
-                cur = -1;
-            }
-        }
-
-        // leaving the instance: restore the world-frame registers
-        if (d_inst != IBIG && depth <= d_inst) {
-#pragma unroll
-            for (int j = 0; j < 6; ++j) loc[j] = world[j];
-            tbase = 0;
-            d_inst = IBIG;
-        }
-    }
-
-    out_tri[i] = b_tri;
-    out_dist[i] = b_d;
-    out_code[i] = b_code;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) out_normal[3 * i + j] = b_n[j];
-    out_iid[i] = b_iid;
-    if (out_visits) out_visits[i] = visits;
-}
-
-template <int FMT, int F>
-void launch_thread(const float* rows, int width, int leaf_size, int depth_max,
-            int fc_col, const float* origin, const float* direction,
-            const int* last_hit, const uint8_t* mask, const float* best_limit,
-            int n, int* out_tri, float* out_dist, int* out_code,
-            float* out_normal, int* out_iid, int* out_visits,
-            cudaStream_t stream) {
-    constexpr int threads = 128;
-    const int blocks = (n + threads - 1) / threads;
-    visit_thread_kernel<FMT, F><<<blocks, threads, 0, stream>>>(
-        rows, width, leaf_size, depth_max, fc_col, origin, direction,
-        last_hit, mask, best_limit, n, out_tri, out_dist, out_code,
-        out_normal, out_iid, out_visits);
-}
-
 }  // namespace
 
 // Plain C entry point for ctypes: the warp-cooperative walk. fmt: 0 f32,
@@ -863,35 +572,3 @@ extern "C" int chroma_visit_inst(
     return (int)cudaGetLastError();
 }
 
-// The first design (one thread per ray), kept as the yardstick that the
-// warp-cooperative walk is timed against: out_visits is (n,).
-extern "C" int chroma_visit_inst_thread(
-    const float* rows, int width, int fanout, int leaf_size, int depth_max,
-    int fmt, int fc_col, const float* origin, const float* direction,
-    const int* last_hit, const uint8_t* mask, const float* best_limit, int n,
-    int* out_tri, float* out_dist, int* out_code, float* out_normal,
-    int* out_iid, int* out_visits, void* stream) {
-    if (depth_max > MAX_D || depth_max < 1) return (int)cudaErrorInvalidValue;
-    if (n <= 0) return (int)cudaSuccess;
-    cudaStream_t s = (cudaStream_t)stream;
-#define CHROMA_LAUNCH(FMT, F)                                               \
-    launch_thread<FMT, F>(rows, width, leaf_size, depth_max, fc_col,        \
-                          origin, direction, last_hit, mask, best_limit, n, \
-                          out_tri, out_dist, out_code, out_normal, out_iid, \
-                          out_visits, s)
-    if (fanout == 32) {
-        if (fmt == FMT_F32) CHROMA_LAUNCH(FMT_F32, 32);
-        else if (fmt == FMT_BF16) CHROMA_LAUNCH(FMT_BF16, 32);
-        else if (fmt == FMT_Q8) CHROMA_LAUNCH(FMT_Q8, 32);
-        else return (int)cudaErrorInvalidValue;
-    } else if (fanout == 16) {
-        if (fmt == FMT_F32) CHROMA_LAUNCH(FMT_F32, 16);
-        else if (fmt == FMT_BF16) CHROMA_LAUNCH(FMT_BF16, 16);
-        else if (fmt == FMT_Q8) CHROMA_LAUNCH(FMT_Q8, 16);
-        else return (int)cudaErrorInvalidValue;
-    } else {
-        return (int)cudaErrorInvalidValue;
-    }
-#undef CHROMA_LAUNCH
-    return (int)cudaGetLastError();
-}

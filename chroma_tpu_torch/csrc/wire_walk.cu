@@ -46,9 +46,7 @@
 // strict `t < best` over ascending k does. Each ray's lane then recomputes
 // the winner's (vn, nn) with the same fmaf and combines the planes in
 // order with the same strict `<`: the result is the one-thread-a-lane
-// walk's bit for bit. That first design stays as wire_walk_thread_kernel
-// (chroma_wire_walk_thread), launched only to time the two against each
-// other.
+// walk's bit for bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC -o libwire_walk.so
@@ -182,61 +180,6 @@ __device__ __forceinline__ bool wire_test(float k, float wv0, float wn0,
     ok = ok && (t >= t_in) && (t <= t_out);
     *t_out_ = t;
     return ok;
-}
-
-// ------------------------------------------------- the first design
-
-__global__ void __launch_bounds__(128)
-wire_walk_thread_kernel(const float* __restrict__ pos,
-                        const float* __restrict__ dir,
-                        const uint8_t* __restrict__ active,
-                        const float* __restrict__ planes, int n_planes,
-                        int n, float* __restrict__ out_t,
-                        int* __restrict__ out_plane,
-                        float* __restrict__ out_vn,
-                        float* __restrict__ out_nn) {
-    int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= n) return;
-    const float p[3] = {pos[3 * lane], pos[3 * lane + 1], pos[3 * lane + 2]};
-    const float d[3] = {dir[3 * lane], dir[3 * lane + 1], dir[3 * lane + 2]};
-    const bool act = active == nullptr || active[lane] != 0;
-
-    float best_t = __int_as_float(0x7f800000);   // +inf
-    int best_plane = -1;
-    float best_vn = 0.0f, best_nn = 0.0f;
-
-    for (int ip = 0; ip < n_planes; ++ip) {
-        const float* P = planes + PLANE_WORDS * ip;
-        const Window w = plane_window(p, d, act, P);
-        if (!w.valid) continue;
-
-        // _intersect_one_plane's loop over this lane's window
-        const float a_coef = fmaf(w.dv, w.dv, w.dn * w.dn);
-        const float inv_a = 1.0f / (a_coef > 0.0f ? a_coef : 1.0f);
-        float pt = __int_as_float(0x7f800000), pvn = 0.0f, pnn = 0.0f;
-        for (float k = w.k_lo; k <= w.k_hi; k = k + 1.0f) {
-            float t;
-            const bool ok = wire_test(k, w.wv0, w.wn0, w.du, w.dv, w.dn,
-                                      w.wu, w.t_in, w.t_out, a_coef, inv_a,
-                                      P, &t);
-            if (ok && t < pt) {
-                pt = t;
-                const float wv = fmaf(-k, P[12], w.wv0);
-                pvn = fmaf(w.dv, t, wv);
-                pnn = fmaf(w.dn, t, w.wn0);
-            }
-        }
-        if (pt < best_t) {
-            best_t = pt;
-            best_plane = ip;
-            best_vn = pvn;
-            best_nn = pnn;
-        }
-    }
-    out_t[lane] = best_t;
-    out_plane[lane] = best_plane;
-    out_vn[lane] = best_vn;
-    out_nn[lane] = best_nn;
 }
 
 // ------------------------------------------------- the warp's walk
@@ -378,8 +321,7 @@ constexpr int WARPS = 4;        // warps of a block of the warp's walk
 // warp's walk take more than 48 KB of shared memory (many planes).
 extern "C" int chroma_wire_walk_load() {
     cudaFuncAttributes attr;
-    int err = (int)cudaFuncGetAttributes(&attr, wire_walk_thread_kernel);
-    if (!err) err = (int)cudaFuncGetAttributes(&attr, wire_walk_kernel);
+    int err = (int)cudaFuncGetAttributes(&attr, wire_walk_kernel);
     if (!err)
         err = (int)cudaFuncSetAttribute(
             wire_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -415,18 +357,3 @@ extern "C" int chroma_wire_walk(const float* pos, const float* dir,
     return (int)cudaGetLastError();
 }
 
-// The same by the first design, one thread a lane (timing only).
-extern "C" int chroma_wire_walk_thread(const float* pos, const float* dir,
-                                       const uint8_t* active,
-                                       const float* planes, int n_planes,
-                                       int n, float* out_t, int* out_plane,
-                                       float* out_vn, float* out_nn,
-                                       void* stream) {
-    if (n <= 0) return (int)cudaSuccess;
-    const int threads = 128;
-    wire_walk_thread_kernel<<<(n + threads - 1) / threads, threads, 0,
-                              (cudaStream_t)stream>>>(
-        pos, dir, active, planes, n_planes, n, out_t, out_plane, out_vn,
-        out_nn);
-    return (int)cudaGetLastError();
-}

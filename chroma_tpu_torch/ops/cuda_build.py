@@ -1,18 +1,25 @@
-"""Build and load the port's hand-written CUDA kernels (csrc/*.cu), and
-keep per-geometry device tables for them.
+"""Build, load, check, launch and count the port's hand-written CUDA
+kernels (csrc/*.cu), and keep per-geometry device tables for them.
 
 Each kernel source is compiled with nvcc at first use into <repo>/build/
-as a shared library with a plain C interface, loaded by ctypes and
-launched on torch's current stream (so a CUDA graph capture records it).
+as a shared library with a plain C interface (a `Library`), loaded by
+ctypes and launched through `launch` on torch's current stream (so a CUDA
+graph capture records it). `launch` counts every launch in `launches` by
+kernel: k1 (the visit kernel), k2_pre, k2_post, k3 (the wire walk), k4
+(the DAQ readout); inside `recording()` the counts go to the recording's
+own Counter instead (a graph capture's launches run only when replayed).
 The flags are the same for every kernel: sm_90a, -O3, and --fmad=false,
 because the plain PyTorch versions round every `a * b + c` twice except
 where they call linalg.fma, and the kernels write fmaf exactly there. No
 --use_fast_math: torch's CUDA logf/expf/sinf/sqrtf are the precise
 libdevice functions, and so are the kernels'. A failed build raises.
-`mask_bytes` hands a kernel a bool lane mask as its bytes without a copy.
+`pointer` checks a tensor argument and `mask_bytes` hands a kernel a bool
+lane mask as its bytes without a copy.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -63,6 +70,29 @@ def build(source):
     return ctypes.CDLL(lib_path), log
 
 
+class Library:
+    """A kernel source's library, built (`build`) and loaded at the first
+    `load()`: `bind(lib)` sets its entry points' argument types, and the
+    entry point named `load_fn`, where given, loads its kernels' modules
+    then rather than at their first launch (which may be inside a graph
+    capture). `build_log` keeps nvcc's output."""
+
+    def __init__(self, source, bind, load_fn=None):
+        self.source, self.bind, self.load_fn = source, bind, load_fn
+        self.lib = None
+        self.build_log = ''
+
+    def load(self):
+        "The loaded ctypes library; raises RuntimeError if the build fails."
+        if self.lib is None:
+            lib, self.build_log = build(self.source)
+            self.bind(lib)
+            if self.load_fn is not None:
+                check_launch(getattr(lib, self.load_fn)(), self.load_fn)
+            self.lib = lib
+        return self.lib
+
+
 _TABLES = {}    # (id(geometry), name) -> (weakref to it, tables)
 
 
@@ -85,6 +115,53 @@ def check_launch(err, what):
     "Raise on a non-zero CUDA error code returned by a C entry point."
     if err != 0:
         raise RuntimeError('%s launch failed: CUDA error %d' % (what, err))
+
+
+launches = collections.Counter()    # kernel launches by name
+_sink = launches                    # where `launch` counts them now
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, launches count in the fresh Counter it yields,
+    not in `launches`: a graph capture records launches that run only
+    when the graph is replayed."""
+    global _sink
+    saved, _sink = _sink, collections.Counter()
+    try:
+        yield _sink
+    finally:
+        _sink = saved
+
+
+@contextlib.contextmanager
+def stream(dev):
+    "`dev` selected, with the handle of its current stream."
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
+
+
+def launch(kernel, fn, dev, *args):
+    """fn(*args, stream): a C entry point of `kernel` called with `dev`
+    selected and its current stream; raises RuntimeError on a CUDA error,
+    and counts one launch of `kernel`."""
+    with stream(dev) as handle:
+        err = fn(*args, handle)
+    check_launch(err, kernel)
+    _sink[kernel] += 1
+
+
+def pointer(name, t, dtype, shape, dev):
+    """The data pointer of `t` (None for None), a contiguous `dtype`
+    tensor of `shape` on `dev`; raises ValueError on anything else."""
+    if t is None:
+        return None
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != dev or not t.is_contiguous():
+        raise ValueError('%s: want contiguous %s %s on %s, got %s %s on %s'
+                         % (name, dtype, tuple(shape), dev, t.dtype,
+                            tuple(t.shape), t.device))
+    return t.data_ptr()
 
 
 def mask_bytes(mask, n, dev, name='active'):

@@ -158,11 +158,9 @@ def run_daq(photons, geometry, generator=None, ndaq=1, uniforms=None,
             if dev.type != 'cuda':
                 return readout_plain(photons, geometry, draws, ndaq,
                                      global_weight, detection_state)
-            out = ChannelArrays(*daq_kernel.readout(
+            return ChannelArrays(*daq_kernel.readout(
                 photons, geometry, draws, ndaq, global_weight,
                 detection_state))
-            profiler.count('daq.kernel_calls')
-            return out
 
 
 def channels_to_host(channel_arrays, evidx=None):

@@ -14,7 +14,7 @@ source, and the result is ops.daq.readout_plain's bit for bit.
 
 `readout` launches the three on CUDA tensors (ops.daq.run_daq calls it
 for every CUDA readout; a failed build or launch raises, and the CPU runs
-readout_plain instead). `launches` counts K4's launches.
+readout_plain instead). K4's launches count as `k4` (ops.cuda_build).
 """
 from __future__ import annotations
 
@@ -29,24 +29,6 @@ from chroma_tpu_torch.ops.photon import i32
 
 SOURCE = os.path.join(cuda_build.CSRC, 'daq_kernel.cu')
 
-launches = 0
-build_log = ''
-_lib = None
-
-
-def build():
-    """Compile csrc/daq_kernel.cu (ops.cuda_build) and load it, with the
-    kernels' module loaded now rather than at the first launch. Raises
-    RuntimeError if nvcc fails."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    lib, build_log = cuda_build.build(SOURCE)
-    bind(lib)
-    cuda_build.check_launch(lib.chroma_daq_load(), 'DAQ kernel load')
-    _lib = lib
-    return lib
-
 
 def bind(lib):
     "Set the C entry points' argument types on `lib`, a build of SOURCE."
@@ -56,6 +38,9 @@ def bind(lib):
     lib.chroma_daq.restype = i
     lib.chroma_daq_load.argtypes = []
     lib.chroma_daq_load.restype = i
+
+
+library = cuda_build.Library(SOURCE, bind, 'chroma_daq_load')
 
 
 def _pack_tables(geometry):
@@ -72,14 +57,6 @@ def tables(geometry):
     return cuda_build.geometry_tables(geometry, 'daq_tables', _pack_tables)
 
 
-def _check(name, t, dtype, shape, dev):
-    if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev \
-            or not t.is_contiguous():
-        raise ValueError('%s: want contiguous %s %s on %s, got %s %s on %s'
-                         % (name, dtype, shape, dev, t.dtype,
-                            tuple(t.shape), t.device))
-
-
 def readout(photons, geometry, draws, ndaq, global_weight=1.0,
             detection_state=SURFACE_DETECT):
     """K4 over all `ndaq` replicas of the PhotonState `photons` on
@@ -88,23 +65,21 @@ def readout(photons, geometry, draws, ndaq, global_weight=1.0,
     counts when it ended on a channel's triangle with a `detection_state`
     flag bit (K4 maps the triangle to its channel as
     ops.daq.photon_channels_device does); `draws` are the (blocks, 3,
-    rows, N) f32 U[0, 1) draws of ops.daq.daq_draws. Counts in
-    `launches`."""
-    global launches
+    rows, N) f32 U[0, 1) draws of ops.daq.daq_draws."""
     det = geometry.detector
     n = len(photons)
     dev = photons.t.device
-    fields = [getattr(photons, name).contiguous() for name in (
-        'last_hit_triangle', 'flags', 't', 'weight')]
-    for name, field, dtype in zip(
-            ('last_hit_triangle', 'flags', 't', 'weight'), fields,
-            (torch.int32, torch.int32, torch.float32, torch.float32)):
-        _check(name, field, dtype, (n,), dev)
+    ptr = cuda_build.pointer
+    names = ('last_hit_triangle', 'flags', 't', 'weight')
+    fields = [getattr(photons, name).contiguous() for name in names]
+    field_ptrs = [ptr(name, field, dtype, (n,), dev) for name, field, dtype
+                  in zip(names, fields, (torch.int32, torch.int32,
+                                         torch.float32, torch.float32))]
     if draws.dim() != 4:
         raise ValueError('draws: want (blocks, 3, rows, N), got %s'
                          % (tuple(draws.shape),))
     blocks, _, rows, _ = draws.shape
-    _check('draws', draws, torch.float32, (blocks, 3, rows, n), dev)
+    draws_ptr = ptr('draws', draws, torch.float32, (blocks, 3, rows, n), dev)
     if ndaq < 1 or blocks * rows < ndaq or (blocks - 1) * rows >= ndaq:
         raise ValueError('%d replicas do not fill %d blocks of %d draws'
                          % (ndaq, blocks, rows))
@@ -115,39 +90,30 @@ def readout(photons, geometry, draws, ndaq, global_weight=1.0,
                                                          n_charge) < 2:
         raise ValueError('the time and charge CDFs need two or more '
                          'points, x and cdf alike')
-    table = tables(geometry)
-    _check('tables', table, torch.float32, (2 * (n_time + n_charge) + 1,),
-           dev)
+    table = ptr('tables', tables(geometry), torch.float32,
+                (2 * (n_time + n_charge) + 1,), dev)
     solid_channel = det.solid_id_to_channel_index
-    _check('solid_id_to_channel_index', solid_channel, torch.int32,
-           tuple(solid_channel.shape[:1]), dev)
+    channel_ptr = ptr('solid_id_to_channel_index', solid_channel,
+                      torch.int32, solid_channel.shape[:1], dev)
     if geometry.inst is not None:
-        tri_base, solid_id = geometry.inst.tri_base, None
-        _check('tri_base', tri_base, torch.int32, tuple(tri_base.shape[:1]),
-               dev)
+        tri_base = geometry.inst.tri_base
+        by_triangle = (ptr('tri_base', tri_base, torch.int32,
+                           tri_base.shape[:1], dev), tri_base.shape[0], None)
     else:
-        tri_base, solid_id = None, geometry.solid_id
-        _check('solid_id', solid_id, torch.int32, tuple(solid_id.shape[:1]),
-               dev)
+        solid_id = geometry.solid_id
+        by_triangle = (None, 0, ptr('solid_id', solid_id, torch.int32,
+                                    solid_id.shape[:1], dev))
     c = det.nchannels
-    lib = build()
+    lib = library.load()
     earliest = torch.empty(ndaq * c, dtype=torch.int32, device=dev)
     count = torch.empty(ndaq * c, dtype=torch.int64, device=dev)
     histories = torch.empty(ndaq * c, dtype=torch.int32, device=dev)
     charge = torch.empty(ndaq * c, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.chroma_daq(
-            *(f.data_ptr() for f in fields),
-            None if tri_base is None else tri_base.data_ptr(),
-            0 if tri_base is None else tri_base.shape[0],
-            None if solid_id is None else solid_id.data_ptr(),
-            solid_channel.data_ptr(), solid_channel.shape[0],
-            i32(detection_state), draws.data_ptr(), table.data_ptr(),
-            n_time, n_charge, float(global_weight), ndaq, rows, n, c,
-            earliest.data_ptr(), count.data_ptr(), histories.data_ptr(),
-            charge.data_ptr(), stream)
-    cuda_build.check_launch(err, 'DAQ kernel')
-    launches += 1
+    cuda_build.launch(
+        'k4', lib.chroma_daq, dev, *field_ptrs, *by_triangle, channel_ptr,
+        solid_channel.shape[0], i32(detection_state), draws_ptr, table,
+        n_time, n_charge, float(global_weight), ndaq, rows, n, c,
+        earliest.data_ptr(), count.data_ptr(), histories.data_ptr(),
+        charge.data_ptr())
     # the finish launch left the earliest times' f32 bits in place
     return earliest.view(torch.float32), charge, histories

@@ -26,11 +26,10 @@ What a replay must not bake in:
     capture), and K2's and K3's geometry tables are packed before the
     capture begins.
 
-The kernels' launch counters (visit_kernel.launches,
-step_kernel.launches for k2_post and step_kernel.pre_launches for k2_pre,
-wire_kernel.launches) move while the step is captured, for launches that
-are only recorded; the capture takes them back, and every replay adds the
-launches the graph holds (`k1`, `k2`, `k2_pre`, `k3`).
+The launches a capture records run only when the graph is replayed: the
+capture counts them in its own Counter (`launches`, through
+ops.cuda_build.recording), and every replay adds that Counter to
+ops.cuda_build.launches.
 
 Graphs are cached per geometry by (lane count, use_weights, scatter_first
 of the step, prune), as XLA caches compiled programs by static
@@ -63,16 +62,11 @@ from collections import OrderedDict
 
 import torch
 
-from chroma_tpu_torch.ops import step_kernel, visit_kernel, wire_kernel
+from chroma_tpu_torch.ops import (cuda_build, step_kernel, visit_kernel,
+                                  wire_kernel)
 from chroma_tpu_torch.ops.photon import propagate_step
 from chroma_tpu_torch.ops.sample import DrawPool, mix_seed
 from chroma_tpu_torch.profiler import profiler
-
-# the kernels whose launches a graph records: (attribute, module, the
-# module's counter)
-KERNELS = (('k1', visit_kernel, 'launches'), ('k2', step_kernel, 'launches'),
-           ('k2_pre', step_kernel, 'pre_launches'),
-           ('k3', wire_kernel, 'launches'))
 
 # graphs kept per geometry: well above the widths of one bomb (at most
 # CHROMA_SCHED_MAX_STAGES + 1 stages and step 0's own graph under
@@ -106,11 +100,11 @@ class StepGraph:
                  prune):
         dev = photons.pos.device
         # the kernels and their geometry tables, before the capture
-        visit_kernel.build()
-        step_kernel.build()
+        visit_kernel.library.load()
+        step_kernel.library.load()
         step_kernel.tables(geometry)
         if geometry.has_wireplanes:
-            wire_kernel.build()
+            wire_kernel.library.load()
             wire_kernel.planes(geometry)
         current = torch.cuda.current_stream(dev)
         self.state = photons.map(torch.clone)
@@ -120,11 +114,11 @@ class StepGraph:
         self.graph.register_generator_state(self.generator)
         side = _STREAMS.setdefault(dev.index, torch.cuda.Stream(dev))
         side.wait_stream(current)
-        before = {name: getattr(mod, ctr) for name, mod, ctr in KERNELS}
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), \
+                    cuda_build.recording() as self.launches:
                 self.graph.capture_begin(pool=_pool(dev))
                 try:
                     pool = DrawPool(len(photons), dev,
@@ -155,12 +149,7 @@ class StepGraph:
                 self.graph.capture_end()
             current.wait_stream(side)
             _ANCHORS.setdefault(dev.index, self.graph)
-            # the launches the capture recorded run only when replayed
-            for name, mod, ctr in KERNELS:
-                setattr(self, name, getattr(mod, ctr) - before[name])
         finally:
-            for name, mod, ctr in KERNELS:
-                setattr(mod, ctr, before[name])
             if collecting:
                 gc.enable()
 
@@ -175,8 +164,7 @@ class StepGraph:
         lanes alive after it (on the device)."""
         self.generator.manual_seed(mix_seed(*seed))
         self.graph.replay()
-        for name, mod, ctr in KERNELS:
-            setattr(mod, ctr, getattr(mod, ctr) + getattr(self, name))
+        cuda_build.launches.update(self.launches)
 
     def output(self):
         "A copy of the lanes, which the next load or replay overwrites."

@@ -32,10 +32,8 @@ geometry and before any capture (ops.cuda_build.geometry_tables).
 
 `before_query` and `after_query` launch k2_pre and k2_post for CUDA
 tensors and run the plain twins for CPU tensors; on a CUDA tensor a failed
-build or launch raises. `pre_launches` counts k2_pre's launches and
-`launches` k2_post's; `launch(..., design='thread')` runs k2_post's first
-design (one thread a lane), kept only to time the two against each
-other, and counts in `thread_launches`.
+build or launch raises. Their launches count as `k2_pre` and `k2_post`
+(ops.cuda_build).
 """
 from __future__ import annotations
 
@@ -56,12 +54,6 @@ from chroma_tpu_torch.ops.types import SURF_REEMISSION_CDF
 
 SOURCE = os.path.join(cuda_build.CSRC, 'step_kernel.cu')
 BLOCK = 8       # uniform streams a DrawPool block holds
-
-launches = 0         # k2_post
-pre_launches = 0     # k2_pre
-thread_launches = 0  # k2_post's first design
-build_log = ''
-_lib = None
 
 # k2_post's block: B lanes regrouped together. Wide blocks sort more lanes
 # by model; narrow ones fill more of the card's 132 SMs at narrow widths.
@@ -367,31 +359,14 @@ class _PreArgs(ctypes.Structure):
         + [(name, _F) for name in ('wl0', 'wl_step')])
 
 
-def build():
-    """Compile csrc/step_kernel.cu (ops.cuda_build) and load it, with the
-    kernel's module loaded now rather than at its first launch (which may
-    be inside a graph capture). Raises RuntimeError if nvcc fails or the
-    library's argument struct differs from _Args."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    lib, build_log = cuda_build.build(SOURCE)
-    bind(lib)
-    cuda_build.check_launch(lib.chroma_step_load(), 'step kernel load')
-    _lib = lib
-    return lib
-
-
 def bind(lib):
     """Set the C entry points' argument types on `lib` (a build of
     csrc/step_kernel.cu); raises RuntimeError if its argument structs
     differ from _Args and _PreArgs."""
     lib.chroma_step.argtypes = [_Args, _I, _P]
-    lib.chroma_step_thread.argtypes = [_Args, _P]
     lib.chroma_step_pre.argtypes = [_PreArgs, _P]
-    for fn in (lib.chroma_step, lib.chroma_step_thread, lib.chroma_step_pre,
-               lib.chroma_step_load, lib.chroma_step_args_size,
-               lib.chroma_step_pre_args_size):
+    for fn in (lib.chroma_step, lib.chroma_step_pre, lib.chroma_step_load,
+               lib.chroma_step_args_size, lib.chroma_step_pre_args_size):
         fn.restype = _I
     for name, size, struct in (
             ('StepArgs', lib.chroma_step_args_size(), _Args),
@@ -401,13 +376,7 @@ def bind(lib):
                                % (name, size, ctypes.sizeof(struct)))
 
 
-def _lane(name, t, dtype, shape, dev):
-    if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev \
-            or not t.is_contiguous():
-        raise ValueError('%s: want contiguous %s %s on %s, got %s %s on %s'
-                         % (name, dtype, shape, dev, t.dtype,
-                            tuple(t.shape), t.device))
-    return t.data_ptr()
+library = cuda_build.Library(SOURCE, bind, 'chroma_step_load')
 
 
 def _as_f32(x):
@@ -416,16 +385,11 @@ def _as_f32(x):
 
 def launch(photons, geometry, blocks, active, pruned, query, wires,
            use_weights=False, scatter_first=0, force_scatter=None,
-           block=None, design='regrouped'):
+           block=None):
     """One launch of k2_post on CUDA tensors (arguments as
     after_query_plain's; force_scatter: CHROMA_FORCE_SCATTER_AT_PASS,
     ops.photon's when None; block: lanes a block, block_for(N, models)
-    when None); returns the new PhotonState and counts in `launches`.
-    `design='thread'` launches the first design (one thread a lane; no
-    block) and counts in `thread_launches`."""
-    global launches, thread_launches
-    if design not in ('regrouped', 'thread'):
-        raise ValueError('design: regrouped or thread, got %r' % (design,))
+    when None); returns the new PhotonState."""
     n = len(photons)
     dev = photons.pos.device
     sites, total = _sites_of(geometry)
@@ -459,7 +423,7 @@ def launch(photons, geometry, blocks, active, pruned, query, wires,
         ins.update(w_t=(w_t, f32, (n,)), w_plane=(w_plane, i32, (n,)),
                    w_vn=(w_vn, f32, (n,)), w_nn=(w_nn, f32, (n,)))
     for name, (t, dtype, shape) in ins.items():
-        setattr(a, name, _lane(name, t, dtype, shape, dev))
+        setattr(a, name, cuda_build.pointer(name, t, dtype, shape, dev))
     out = photons.replace(**{
         f: torch.empty_like(getattr(photons, f)) for f in (
             'pos', 'dir', 'pol', 'wavelength', 't', 'weight', 'flags',
@@ -492,20 +456,9 @@ def launch(photons, geometry, blocks, active, pruned, query, wires,
     a.t0_zero = int(a.time0 == 0.0)
     a.sites[:] = list(sites)
 
-    lib = build()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if design == 'thread':
-            err = lib.chroma_step_thread(a, stream)
-        else:
-            if block is None:
-                block = block_for(n, len(s.models_present))
-            err = lib.chroma_step(a, block, stream)
-    cuda_build.check_launch(err, 'step kernel')
-    if design == 'thread':
-        thread_launches += 1
-    else:
-        launches += 1
+    if block is None:
+        block = block_for(n, len(s.models_present))
+    cuda_build.launch('k2_post', library.load().chroma_step, dev, a, block)
     return out
 
 
@@ -513,8 +466,7 @@ def launch_pre(photons, geometry, blocks, prune):
     """One launch of k2_pre on CUDA tensors: the prologue's NaN guard,
     active lanes and (with `prune`) pruned lanes and limit, from the
     step's uniform blocks (streams 0 and 1: the absorption and scattering
-    draws). Returns step_prologue's tuple; counts in `pre_launches`."""
-    global pre_launches
+    draws). Returns step_prologue's tuple."""
     n = len(photons)
     dev = photons.pos.device
     mats = geometry.materials
@@ -531,7 +483,7 @@ def launch_pre(photons, geometry, blocks, prune):
             ('cur_mat', photons.cur_mat, i32, (n,)),
             ('u', blocks, f32, tuple(blocks.shape)),
             ('mat_wl', mats.props_wl, f32, tuple(mats.props_wl.shape))):
-        setattr(a, name, _lane(name, t, dtype, shape, dev))
+        setattr(a, name, cuda_build.pointer(name, t, dtype, shape, dev))
     flags = torch.empty_like(photons.flags)
     active = torch.empty(n, dtype=torch.bool, device=dev)
     pruned = limit = None
@@ -544,10 +496,5 @@ def launch_pre(photons, geometry, blocks, prune):
     a.n_wl, a.n_mat = mats.n_wavelength, mats.props_wl.shape[1]
     a.wl0, a.wl_step = _as_f32(mats.wavelength0), _as_f32(
         mats.wavelength_step)
-    lib = build()
-    with torch.cuda.device(dev):
-        err = lib.chroma_step_pre(a, torch.cuda.current_stream(dev)
-                                  .cuda_stream)
-    cuda_build.check_launch(err, 'step prologue kernel')
-    pre_launches += 1
+    cuda_build.launch('k2_pre', library.load().chroma_step_pre, dev, a)
     return photons.replace(flags=flags), active, blocks, pruned, limit

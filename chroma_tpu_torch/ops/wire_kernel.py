@@ -16,10 +16,7 @@ step of a wire-plane geometry.
 
 `walk` launches K3 for CUDA tensors and runs the plain twin
 (wireplane.walk_plain) for CPU tensors; on a CUDA tensor a failed build
-or launch raises. `launches` counts K3's launches. `launch_thread`
-launches the first design (one thread a lane, each over its own windows),
-kept only to time the two against each other; it counts in
-`thread_launches`.
+or launch raises. K3's launches count as `k3` (ops.cuda_build).
 """
 from __future__ import annotations
 
@@ -34,35 +31,18 @@ SOURCE = os.path.join(cuda_build.CSRC, 'wire_walk.cu')
 PLANE_WORDS = 19    # origin, u, v, w (3 each), pitch, radius, umin, umax,
                     # vmin, vmax, v0
 
-launches = 0
-thread_launches = 0
-build_log = ''
-_lib = None
-
-
-def build():
-    """Compile csrc/wire_walk.cu (ops.cuda_build) and load it, with the
-    kernel's module loaded now rather than at its first launch (which may
-    be inside a graph capture). Raises RuntimeError if nvcc fails."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    lib, build_log = cuda_build.build(SOURCE)
-    bind(lib)
-    cuda_build.check_launch(lib.chroma_wire_walk_load(), 'wire walk load')
-    _lib = lib
-    return lib
-
 
 def bind(lib):
     "Set the C entry points' argument types on `lib`, a build of SOURCE."
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.chroma_wire_walk, lib.chroma_wire_walk_thread):
-        fn.argtypes = [p, p, p, p, i, i, p, p, p, p, p]
-        fn.restype = i
+    lib.chroma_wire_walk.argtypes = [p, p, p, p, i, i, p, p, p, p, p]
+    lib.chroma_wire_walk.restype = i
     for fn in (lib.chroma_wire_walk_load, lib.chroma_wire_walk_max_planes):
         fn.argtypes = []
         fn.restype = i
+
+
+library = cuda_build.Library(SOURCE, bind, 'chroma_wire_walk_load')
 
 
 def _pack_planes(geometry):
@@ -87,23 +67,18 @@ def walk(pos, direction, geometry, active):
     return launch(pos, direction, planes(geometry), active)
 
 
-def launch(pos, direction, plane_table, active, design='warp'):
+def launch(pos, direction, plane_table, active):
     """One launch of K3 on CUDA tensors (pos, direction (N, 3) f32,
-    active (N,) bool or None); counts in `launches` (`design='thread'`:
-    the first design, counted in `thread_launches`)."""
-    global launches, thread_launches
+    active (N,) bool or None)."""
     n = pos.shape[0]
     dev = pos.device
-    for name, t, shape in (('pos', pos, (n, 3)),
-                           ('direction', direction, (n, 3))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape \
-                or t.device != dev or not t.is_contiguous():
-            raise ValueError('%s: want contiguous f32 %s on %s' % (
-                name, shape, dev))
+    f32 = torch.float32
+    args = [cuda_build.pointer('pos', pos, f32, (n, 3), dev),
+            cuda_build.pointer('direction', direction, f32, (n, 3), dev)]
     if plane_table.device != dev or plane_table.shape[1] != PLANE_WORDS:
         raise ValueError('plane table must be (P, %d) on %s'
                          % (PLANE_WORDS, dev))
-    lib = build()
+    lib = library.load()
     if plane_table.shape[0] > lib.chroma_wire_walk_max_planes():
         raise ValueError('%d wire planes: the warp walk takes at most %d'
                          % (plane_table.shape[0],
@@ -114,21 +89,9 @@ def launch(pos, direction, plane_table, active, design='warp'):
     best_plane = torch.empty(n, dtype=torch.int32, device=dev)
     best_vn = torch.empty(n, dtype=torch.float32, device=dev)
     best_nn = torch.empty(n, dtype=torch.float32, device=dev)
-    fns = {'warp': lib.chroma_wire_walk,
-           'thread': lib.chroma_wire_walk_thread}
-    if design not in fns:
-        raise ValueError('design: warp or thread, got %r' % (design,))
-    fn = fns[design]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(pos.data_ptr(), direction.data_ptr(),
-                 None if mask is None else mask.data_ptr(),
-                 plane_table.data_ptr(), plane_table.shape[0], n,
-                 best_t.data_ptr(), best_plane.data_ptr(), best_vn.data_ptr(),
-                 best_nn.data_ptr(), stream)
-    cuda_build.check_launch(err, 'wire walk')
-    if design == 'warp':
-        launches += 1
-    else:
-        thread_launches += 1
+    cuda_build.launch(
+        'k3', lib.chroma_wire_walk, dev, *args,
+        None if mask is None else mask.data_ptr(), plane_table.data_ptr(),
+        plane_table.shape[0], n, best_t.data_ptr(), best_plane.data_ptr(),
+        best_vn.data_ptr(), best_nn.data_ptr())
     return best_t, best_plane, best_vn, best_nn

@@ -19,7 +19,7 @@ from chroma_tpu_torch.geometry import vacuum
 from chroma_tpu_torch.demo.optics import water, glass
 from chroma_tpu_torch.make import box, sphere
 from chroma_tpu_torch.bvh.wide import build_instanced_bvh
-from chroma_tpu_torch.ops import mesh_wide, visit_kernel
+from chroma_tpu_torch.ops import cuda_build, mesh_wide, visit_kernel
 from chroma_tpu_torch.ops.photon import PhotonState
 from chroma_tpu_torch.ops.types import (build_geometry_arrays,
                                         pack_material_codes)
@@ -117,10 +117,10 @@ def _query(tw, n, seed, masked, limited, device):
 def test_visit_kernel_matches_plain(cuda, fmt, n):
     tw = _table(fmt).to(cuda)
     full, ref = _query(tw, n, 7, 0.1, 0.25, cuda)
-    before = visit_kernel.launches
+    before = cuda_build.launches['k1']
     got = [x.cpu().numpy() for x in visit_kernel.traverse(tw, *full)]
     torch.cuda.synchronize()
-    assert visit_kernel.launches == before + 1
+    assert cuda_build.launches['k1'] == before + 1
     _assert_same(got, ref, n // 4)
 
 
@@ -144,15 +144,6 @@ def test_visit_kernel_schedules_match_plain(cuda, fmt, group, persistent):
     np.testing.assert_array_equal(kinds, mesh_wide.traverse(
         tw, *full, by_kind=True)[5].cpu().numpy())
     np.testing.assert_array_equal(kinds.sum(axis=1), ref[5])
-
-
-@pytest.mark.cuda
-def test_thread_design_matches_plain(cuda):
-    "The one-thread-per-ray yardstick computes the same function."
-    tw = _table('bf16').to(cuda)
-    full, ref = _query(tw, 8192, 9, 0.1, 0.25, cuda)
-    got = [x.cpu().numpy() for x in visit_kernel.traverse_thread(tw, *full)]
-    _assert_same(got, ref, 2048)
 
 
 @pytest.mark.cuda
@@ -214,17 +205,17 @@ def test_device_source_simulation_and_facade(cuda, monkeypatch):
     det = _box_detector()
     state = _device_bomb(20000, 3, cuda)
 
-    before = visit_kernel.launches
+    before = cuda_build.launches['k1']
     ev = next(chroma_tpu_torch.Simulation(det, seed=5, device=cuda)
               .simulate(state, keep_photons_end=True, run_daq=True,
                         max_steps=100))
-    assert visit_kernel.launches > before
-    before = visit_kernel.launches
+    assert cuda_build.launches['k1'] > before
+    before = cuda_build.launches['k1']
     gg = gpu.GPUDetector(det, device=cuda)
     gp = gpu.GPUPhotons(state)
     rng = gpu.get_rng_states(len(state), seed=5)
     gp.propagate(gg, rng, max_steps=100)
-    assert visit_kernel.launches > before
+    assert cuda_build.launches['k1'] > before
     end = gp.get()
     for name in ('pos', 'dir', 'pol', 't', 'flags', 'last_hit_triangles'):
         np.testing.assert_array_equal(getattr(end, name),
@@ -256,12 +247,12 @@ def nccl_rank(n, seed):
     mesh = photon_mesh()
     ga = build_geometry_arrays(_box_detector()).to(mesh.device)
     state = _device_bomb(n, 3, torch.device('cpu'))
-    before = visit_kernel.launches
+    before = cuda_build.launches['k1']
     photons, channels = propagate_and_daq_sharded(
         state.map(lambda a: a.to(mesh.device)), ga, seed, max_steps=100,
         mesh=mesh)
     return dict(device=str(mesh.device), current=torch.cuda.current_device(),
-                launches=visit_kernel.launches - before,
+                launches=cuda_build.launches['k1'] - before,
                 state={k: v.cpu().numpy() for k, v in vars(photons).items()},
                 daq=[x.cpu().numpy() for x in (channels.earliest_time,
                                                channels.charge,
@@ -383,12 +374,12 @@ def test_render_card_against_cpu(cuda):
     out = {}
     for dev in ('cpu', cuda):
         rays = pose.rays((160, 120), device=dev)
-        before = visit_kernel.launches
+        before = cuda_build.launches['k1']
         pix = rays.render(ga.to(dev), alpha_depth=6)
         out[str(dev)] = (render.pixels_to_host(pix),
                          render.distances(rays.pos, rays.dir,
                                           ga.to(dev)).cpu().numpy(),
-                         visit_kernel.launches - before)
+                         cuda_build.launches['k1'] - before)
     (cp, cd, cl), (gp, gd, gl) = out['cpu'], out[str(cuda)]
     assert cl == 0 and 2 <= gl <= 7
     assert (cp != gp).mean() <= 1e-3 and (cp != 0xFFFFFFFF).sum() > 500
@@ -435,10 +426,10 @@ def test_photon_map_card_against_cpu(cuda):
     assert want.sum() > 1000
     np.testing.assert_allclose(got, want, rtol=1e-4)
     rays = CameraPose((0.0, -900.0, 0.0)).rays((64, 48), device=cuda)
-    before = visit_kernel.launches
+    before = cuda_build.launches['k1']
     pix = render.pixels_to_host(render.hybrid_render(
         rays.pos, rays.dir, ga.to(cuda), (3, 0), nphotons=20000, nbatches=2))
-    assert visit_kernel.launches > before
+    assert cuda_build.launches['k1'] > before
     assert (pix >> 24 == 0xFF).all() and ((pix & 0xFFFFFF) != 0).mean() > 0.9
 
 
@@ -467,14 +458,14 @@ def test_graph_replay_matches_eager_fused_route(cuda, prof_counters):
     sched = ((1, 2), (2, 2), (4, 2))
     out = {}
     for use_graphs in (False, True, True):
-        launches = visit_kernel.launches
+        launches = cuda_build.launches['k1']
         replays = prof_counters['graphs.replays']
         res, _, abort = P._fused_bomb(state, ga, (9, 2), sched, 100,
                                       use_graphs=use_graphs)
         torch.cuda.synchronize()
         assert not abort
         out.setdefault(use_graphs, []).append(
-            (res, visit_kernel.launches - launches,
+            (res, cuda_build.launches['k1'] - launches,
              prof_counters['graphs.replays'] - replays))
     (eager, k_eager, r_eager), = out[False]
     assert r_eager == 0 and k_eager > 0
@@ -489,26 +480,22 @@ def test_graph_replay_matches_eager_fused_route(cuda, prof_counters):
 
 @pytest.mark.cuda
 def test_replay_adds_the_captured_k1_launches(cuda, prof_counters):
-    """A replay moves visit_kernel.launches by the K1 launches its capture
-    recorded (one), and the capture itself by none; a replay counts
-    nothing in the profiler (the driver counts once a stage)."""
+    """A replay adds to cuda_build.launches the launches its capture
+    recorded (one each of K1, k2_pre and k2_post), and the capture itself
+    adds none; a replay counts nothing in the profiler (the driver counts
+    once a stage)."""
     from chroma_tpu_torch.ops import graphs
     ga = _tiny_on(cuda)
     state = _device_bomb(4096, 8, cuda)
-    from chroma_tpu_torch.ops import step_kernel
-    before = visit_kernel.launches
-    before2 = step_kernel.launches
-    before_pre = step_kernel.pre_launches
+    before = cuda_build.launches.copy()
     g = graphs.StepGraph(ga, state, False, 0, True)
-    assert visit_kernel.launches == before and g.k1 == 1
-    assert step_kernel.launches == before2 and g.k2 == 1 and g.k3 == 0
-    assert step_kernel.pre_launches == before_pre and g.k2_pre == 1
+    assert cuda_build.launches == before
+    assert g.launches == {'k1': 1, 'k2_pre': 1, 'k2_post': 1}
     for step in range(3):
         g.replay(4, step)
-        assert visit_kernel.launches == before + g.k1 * (step + 1)
-        assert step_kernel.launches == before2 + g.k2 * (step + 1)
-        assert step_kernel.pre_launches == before_pre + g.k2_pre * (step
-                                                                   + 1)
+        for name in ('k1', 'k2_pre', 'k2_post', 'k3'):
+            assert cuda_build.launches[name] == before[name] \
+                + g.launches[name] * (step + 1)
     torch.cuda.synchronize()
     assert not prof_counters
 
@@ -543,19 +530,19 @@ def test_capture_with_host_sync_raises(cuda, monkeypatch, prof_counters):
     from chroma_tpu_torch.ops import propagate as P
     ga = build_geometry_arrays(_wire_box()).to(cuda)
     state = _device_bomb(4096, 9, cuda)
-    before = visit_kernel.launches
+    before = cuda_build.launches['k1']
     with monkeypatch.context() as mp:
         mp.setattr(wire_kernel, 'walk', wireplane.walk_plain)
         with pytest.raises(RuntimeError):
             graphs.capture(ga, state, False, 0, True)
-        assert visit_kernel.launches == before
+        assert cuda_build.launches['k1'] == before
         assert graphs.lookup(ga, state, False, 0, True) is None
         torch.cuda.synchronize()
     captures = prof_counters['graphs.captures']
     res, _, _ = P._fused_bomb(state, ga, 3, ((1, 2),), 100)
     torch.cuda.synchronize()
     assert prof_counters['graphs.captures'] > captures
-    assert visit_kernel.launches > before
+    assert cuda_build.launches['k1'] > before
     assert not res.alive.any()
 
 
@@ -716,10 +703,10 @@ def test_step_kernel_matches_plain(cuda, case):
         prune = o.pop('prune', True)
         ph, active, blocks, pruned, query, wires = _step_inputs(
             ga, state, (11, s), prune=prune, **o)
-        before = step_kernel.launches
+        before = cuda_build.launches['k2_post']
         got = step_kernel.after_query(ph, ga, blocks, active, pruned, query,
                                       wires, **o)
-        assert step_kernel.launches == before + 1
+        assert cuda_build.launches['k2_post'] == before + 1
         ref = step_kernel.after_query_plain(ph, ga, blocks, active, pruned,
                                             query, wires, **o)
         torch.cuda.synchronize()
@@ -741,9 +728,9 @@ def test_wire_kernel_matches_plain(cuda):
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     pos, d = (torch.from_numpy(x).to(cuda) for x in (pos, d))
     active = torch.from_numpy(rs.uniform(size=n) > 0.1).to(cuda)
-    before = wire_kernel.launches
+    before = cuda_build.launches['k3']
     got = wire_kernel.walk(pos, d, ga, active)
-    assert wire_kernel.launches == before + 1
+    assert cuda_build.launches['k3'] == before + 1
     ref = wireplane.walk_plain(pos, d, ga, active)
     torch.cuda.synchronize()
     assert torch.equal(got[1], ref[1])
@@ -786,15 +773,14 @@ def test_wire_plane_replay_matches_eager(cuda, prof_counters):
     graph replays and with every step eager, same seed, every field equal
     bit for bit; K1, K3 and K2's k2_pre and k2_post launched once a step
     either way."""
-    from chroma_tpu_torch.ops import step_kernel, wire_kernel
     from chroma_tpu_torch.ops import propagate as P
     ga = build_geometry_arrays(_optics_box()).to(cuda)
     state = _device_bomb(1 << 15, 13, cuda)
     sched = ((1, 2), (2, 2), (4, 2))
     out = {}
     def counters():
-        return (visit_kernel.launches, step_kernel.launches,
-                step_kernel.pre_launches, wire_kernel.launches,
+        return (cuda_build.launches['k1'], cuda_build.launches['k2_post'],
+                cuda_build.launches['k2_pre'], cuda_build.launches['k3'],
                 prof_counters['graphs.replays'],
                 prof_counters['graphs.captures'])
     for use_graphs in (False, True):
@@ -868,9 +854,9 @@ def test_step_prologue_kernel_matches_plain(cuda, case):
     def pool():
         return DrawPool(len(state), cuda,
                         generator=make_generator(cuda, 16))
-    before = step_kernel.pre_launches
+    before = cuda_build.launches['k2_pre']
     got = step_kernel.before_query(state, ga, pool(), **opts)
-    assert step_kernel.pre_launches == before + 1
+    assert cuda_build.launches['k2_pre'] == before + 1
     ref = photon.step_prologue(state, ga, pool(), **opts)
     torch.cuda.synchronize()
     _assert_prologue_equal(got, ref)
@@ -884,8 +870,7 @@ def test_step_prologue_kernel_matches_plain(cuda, case):
 @pytest.mark.parametrize('n', [1 << 15, 30001])
 def test_step_kernel_blocks_match_plain(cuda, block, n):
     """k2_post at each block size, at a width that is a multiple of every
-    block and at an odd one, against its plain twin and bit for bit
-    against the first design (one thread a lane) on the all-models box
+    block and at an odd one, against its plain twin on the all-models box
     (every surface model, Fresnel alone, reemission and a wire plane)."""
     from chroma_tpu_torch.ops import step_kernel
     ga = build_geometry_arrays(_optics_box()).to(cuda)
@@ -893,15 +878,11 @@ def test_step_kernel_blocks_match_plain(cuda, block, n):
     ph, active, blocks, pruned, query, wires = _step_inputs(ga, state,
                                                             (18,))
     args = (ph, ga, blocks, active, pruned, query, wires)
-    before = step_kernel.launches, step_kernel.thread_launches
+    before = cuda_build.launches['k2_post']
     got = step_kernel.launch(*args, block=block)
-    first = step_kernel.launch(*args, design='thread')
-    assert (step_kernel.launches, step_kernel.thread_launches) == (
-        before[0] + 1, before[1] + 1)
+    assert cuda_build.launches['k2_post'] == before + 1
     ref = step_kernel.after_query_plain(*args)
     torch.cuda.synchronize()
-    for name in FUSED_FIELDS:
-        assert torch.equal(getattr(got, name), getattr(first, name)), name
     _lanes_agree(got, ref)
 
 
@@ -950,21 +931,19 @@ def tie_rays(n, seed):
 
 @pytest.mark.cuda
 def test_wire_kernel_ties_match_plain(cuda):
-    """K3 (the warp's walk) against walk_plain and the first design on
-    rays that force ties: hits on two coinciding planes (the first plane
-    keeps them), rays through a wire's axis and rays starting inside a
-    wire: planes, distances and coordinates equal bit for bit."""
+    """K3 (the warp's walk) against walk_plain on rays that force ties:
+    hits on two coinciding planes (the first plane keeps them), rays
+    through a wire's axis and rays starting inside a wire: planes,
+    distances and coordinates equal bit for bit."""
     from chroma_tpu_torch.ops import wire_kernel, wireplane
     ga = build_geometry_arrays(_tie_box()).to(cuda)
     pos, d, active = (torch.from_numpy(x).to(cuda)
                       for x in tie_rays(30001, 19))
     got = wire_kernel.walk(pos, d, ga, active)
-    first = wire_kernel.launch(pos, d, wire_kernel.planes(ga), active,
-                               design='thread')
     ref = wireplane.walk_plain(pos, d, ga, active)
     torch.cuda.synchronize()
-    for a, b, c in zip(got, first, ref):
-        assert torch.equal(a, b) and torch.equal(a, c)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
     planes = ref[1].cpu().numpy()
     assert (planes == 0).sum() > 1000 and (planes == 2).sum() > 100
     assert (planes == 1).sum() == 0     # the coinciding plane never wins
@@ -994,16 +973,15 @@ def daq_geos():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('name', list(DAQ_CASES))
-def test_daq_kernel_matches_plain(cuda, daq_geos, prof_counters, name):
+def test_daq_kernel_matches_plain(cuda, daq_geos, name):
     """K4 (run_daq on the card, one launch) against its plain twin
     readout_plain on the same injected draws: earliest times, charges and
     histories bit for bit; some channels hit, some times negative."""
-    from chroma_tpu_torch.ops import daq, daq_kernel
+    from chroma_tpu_torch.ops import daq
     photons, ga, kw = daq_case(daq_geos, name, cuda)
-    before = daq_kernel.launches
+    before = cuda_build.launches['k4']
     got = daq.run_daq(photons, ga, **kw)
-    assert daq_kernel.launches == before + 1
-    assert prof_counters['daq.kernel_calls'] == 1
+    assert cuda_build.launches['k4'] == before + 1
     ndaq = kw['ndaq']
     draws = daq.daq_draws(len(photons), ndaq, cuda, uniforms=daq_uniforms)
     ref = daq.readout_plain(photons, ga, draws, ndaq,

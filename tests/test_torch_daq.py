@@ -292,24 +292,20 @@ def test_rows_past_ndaq_contribute_nothing(hits):
 
 def test_run_daq_on_cpu_never_touches_k4(hits, monkeypatch):
     """run_daq on CPU tensors reads out with the plain twin: K4's wrapper
-    is neither built nor called, and the kernel-call counter stays 0."""
-    from chroma_tpu_torch.ops import daq_kernel
-    from chroma_tpu_torch.profiler import profiler
+    is neither built nor called, and K4's launch count stays as it was."""
+    from chroma_tpu_torch.ops import cuda_build, daq_kernel
 
     def boom(*args, **kwargs):
         raise AssertionError('K4 touched on the CPU')
     monkeypatch.setattr(daq_kernel, 'readout', boom)
-    monkeypatch.setattr(daq_kernel, 'build', boom)
-    monkeypatch.setattr(profiler, 'enabled', True)
-    monkeypatch.setattr(profiler, 'counters', type(profiler.counters)(int))
+    monkeypatch.setattr(daq_kernel.library, 'load', boom)
     _, ta, _, ts = hits
-    before = daq_kernel.launches
+    before = cuda_build.launches['k4']
     gen = torch.Generator()
     gen.manual_seed(9)
     got = tdaq.run_daq(ts, ta, gen, ndaq=10)
     assert (got.earliest_time < tdaq.HIT_TIME_CUT).any()
-    assert daq_kernel.launches == before
-    assert profiler.counters['daq.kernel_calls'] == 0
+    assert cuda_build.launches['k4'] == before
 
 
 @pytest.fixture(scope='module')
@@ -340,17 +336,17 @@ def test_host_built_k4_matches_twin(host_k4, daq_geos, name):
     test (tests/test_torch_cuda.py), bit for bit. The readout's arithmetic
     is IEEE adds, multiplies and divides and one rint, which glibc and the
     card round alike."""
-    from chroma_tpu_torch.ops import daq_kernel
+    from chroma_tpu_torch.ops import cuda_build, daq_kernel
     photons, ga, kw = daq_case(daq_geos, name, 'cpu')
     ndaq = kw['ndaq']
     draws = tdaq.daq_draws(len(photons), ndaq, 'cpu',
                            uniforms=kw['uniforms'])
     opts = (kw.get('global_weight', 1.0),
             kw.get('detection_state', tevent.SURFACE_DETECT))
-    before = daq_kernel.launches
+    before = cuda_build.launches['k4']
     got = tdaq.ChannelArrays(*daq_kernel.readout(photons, ga, draws, ndaq,
                                                  *opts))
-    assert daq_kernel.launches == before + 1
+    assert cuda_build.launches['k4'] == before + 1
     ref = tdaq.readout_plain(photons, ga, draws, ndaq, *opts)
     channel_arrays_equal(got, ref)
     t = ref.earliest_time

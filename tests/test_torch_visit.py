@@ -20,7 +20,7 @@ from chroma_tpu.ops.types import pack_material_codes
 from chroma_tpu.bvh.wide import build_instanced_bvh
 from chroma_tpu.ops import mesh_wide as jmesh
 from chroma_tpu_torch.bvh import wide as twide
-from chroma_tpu_torch.ops import mesh_wide, visit_kernel
+from chroma_tpu_torch.ops import cuda_build, mesh_wide, visit_kernel
 from chroma_tpu_torch.ops import types as ttypes
 
 from test_torch_host import same_native_kit  # noqa: F401
@@ -169,13 +169,13 @@ def test_visits_by_kind(placed):
     assert (kinds[ref[0] >= 0, 1] >= 1).all()
     assert (kinds[mask].sum(axis=1) >= 1).all()
     assert (kinds[~mask] == 0).all()
-    before = visit_kernel.launches
+    before = cuda_build.launches['k1']
     cpu = visit_kernel.traverse(
         tw, torch.from_numpy(o), torch.from_numpy(d),
         torch.from_numpy(last), torch.from_numpy(mask),
         torch.from_numpy(limit), by_kind=True)[5].numpy()
     np.testing.assert_array_equal(cpu, kinds)
-    assert visit_kernel.launches == before
+    assert cuda_build.launches['k1'] == before
 
 
 def test_rows_seen(placed):
@@ -205,9 +205,9 @@ def test_wrapper_takes_plain_version_on_cpu(placed):
     "On CPU tensors the kernel wrapper runs the plain version, no launch."
     _, tw = _tables(placed, 'bf16')
     o, d, mask, limit, last = _rays(256, 5)
-    before = visit_kernel.launches
+    before = cuda_build.launches['k1']
     got = _torch_query(tw, o, d, mask, limit, last, visit_kernel.traverse)
     ref = _torch_query(tw, o, d, mask, limit, last)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
-    assert visit_kernel.launches == before
+    assert cuda_build.launches['k1'] == before

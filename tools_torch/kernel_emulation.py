@@ -32,7 +32,6 @@ import re
 import shutil
 import subprocess
 import sys
-import types
 
 import numpy as np
 import torch
@@ -283,24 +282,22 @@ def build_host(source):
 def host_kernels(modules=(step_kernel, wire_kernel)):
     """Within the block, the launches of the kernel wrappers `modules`
     (K2's and K3's by default; daq_kernel for K4) run the host-built
-    kernels on CPU tensors."""
+    kernels on CPU tensors: each wrapper's library is its host build, and
+    cuda_build.stream selects no device and passes a null stream."""
     libs = []
     for mod in modules:
         libs.append(build_host(mod.SOURCE))
-        mod.bind(libs[-1])
-    saved = ([mod._lib for mod in modules], torch.cuda.device,
-             torch.cuda.current_stream)
+        mod.library.bind(libs[-1])
+    saved = [mod.library.lib for mod in modules], cuda_build.stream
     for mod, lib in zip(modules, libs):
-        mod._lib = lib
-    torch.cuda.device = lambda dev: contextlib.nullcontext()
-    torch.cuda.current_stream = \
-        lambda dev=None: types.SimpleNamespace(cuda_stream=0)
+        mod.library.lib = lib
+    cuda_build.stream = lambda dev: contextlib.nullcontext(0)
     try:
         yield
     finally:
         for mod, lib in zip(modules, saved[0]):
-            mod._lib = lib
-        torch.cuda.device, torch.cuda.current_stream = saved[1:]
+            mod.library.lib = lib
+        cuda_build.stream = saved[1]
 
 
 def differing(got, ref, fields=None):

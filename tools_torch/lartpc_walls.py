@@ -38,7 +38,7 @@ def main(argv):
     from chroma_tpu_torch.ops.types import build_geometry_arrays
     routes = (argv[argv.index('--routes') + 1] if '--routes' in argv
               else 'default,default,default').split(',')
-    visit_kernel.build()
+    visit_kernel.library.load()
     geo = chip_smoke.lartpc_geometry()
     ga = build_geometry_arrays(geo)
     sim = chroma_tpu_torch.Simulation(geo, seed=0, device='cuda',
