@@ -20,16 +20,25 @@
 // min/max propagate NaN as torch.minimum / torch.maximum / clamp do (a
 // degenerate ray's window becomes NaN there and is then invalid).
 //
+// The window. A wire can only be met inside the slab |n| <= radius about
+// its plane, and there v is linear in t, so a ray's candidates are the
+// wires whose v lies within the radius of its slab chord: between the v
+// of its entry and of its exit (clipped to the plane's u extent and to
+// t >= T_MIN), with one wire more on each side so that the rounding of
+// the slab times never shuts out a wire that can be hit. (The JAX
+// package and Chroma's photon.h stretch the window back to the v of the
+// ray's origin, which a ray from outside the slab can never meet again.)
+//
 // What bounds it. Per lane it reads 24 bytes of ray and 1 of mask and
 // writes 16 (t, plane, vn, nn); the planes' 76 bytes each are broadcast.
 // Operations: per plane about 70 f32 operations of set-up (three 3-dots,
 // the slab and window) and about 30 a candidate wire, so with W_p the
 // window of plane p summed over lanes:
 //   bytes = 41 N,  ops = 70 P N + 30 sum_p W_p
-// A lartpc-wires bomb (three planes at 3 mm pitch, photons from 300 mm
-// below) visits on average tens of wires a plane, a MicroBooNE-size TPC
-// (planes 10 m long, photons metres away) hundreds: the operations bound
-// it.
+// A slab chord at 3 mm pitch spans about two wires, so with the slack a
+// lane that meets a plane walks about four of it: the per-plane set-up
+// is most of the operations, and the bytes bound it on paper. Rays that
+// graze a plane keep windows of up to thousands of wires.
 //
 // What the design does about it (wire_walk_kernel). The windows of a
 // warp's rays differ in length (0 to thousands of wires), so a thread that
@@ -133,13 +142,15 @@ __device__ __forceinline__ Window plane_window(const float* p,
     const float span = (pitch + 2.0f * radius) / tmax(fabsf(r.dv), 1e-12f);
     if (grazing) t_hi = tmin(t_hi, t_lo + span);
 
+    // the wires of the slab chord, and one more on each side so that the
+    // rounding of the slab times never shuts out a wire that can be hit
     const float v_entry = fmaf(r.dv, t_lo, r.wv0);
     const float v_exit = fmaf(r.dv, t_hi, r.wv0);
-    const float v_lo = tmin(tmin(v_entry, v_exit), r.wv0) - pad;
-    const float v_hi = tmax(tmax(v_entry, v_exit), r.wv0) + pad;
+    const float v_lo = tmin(v_entry, v_exit) - pad;
+    const float v_hi = tmax(v_entry, v_exit) + pad;
 
-    r.k_lo = tmax(floorf(v_lo / pitch), kmin);
-    r.k_hi = tmin(ceilf(v_hi / pitch), kmax);
+    r.k_lo = tmax(floorf(v_lo / pitch) - 1.0f, kmin);
+    r.k_hi = tmin(ceilf(v_hi / pitch) + 1.0f, kmax);
     valid = valid && (r.k_lo <= r.k_hi);
     r.k_hi = tmin(r.k_hi, r.k_lo + MAX_WINDOW);
     r.valid = valid;

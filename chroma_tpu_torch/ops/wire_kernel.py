@@ -5,7 +5,9 @@ Replaces the device lax.while_loop of chroma_tpu/ops/wireplane.py
 `intersect_wireplanes`, :177-197), which XLA runs on the device in
 lockstep over the batch's widest candidate-wire window. Here a warp takes
 32 rays: each lane sets up its own ray's window [k_lo, k_hi] on every
-plane (capped at MAX_WINDOW wires beyond the first), and the warp walks
+plane -- the wires of the ray's chord through the slab |n| <= radius, one
+more on each side, capped at MAX_WINDOW wires beyond the first (JAX's
+window reaches back to the v of the ray's origin) -- and the warp walks
 the 32 rays' candidate wires together, 32 at a time, keeping each (ray,
 plane)'s nearest hit with the plain loop's tie rule (the smallest k wins
 a tie) and then each ray's nearest plane in plane order, so the result is

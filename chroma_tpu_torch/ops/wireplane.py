@@ -67,7 +67,15 @@ class WirePlaneHit:
 
 def _plane_window(pos, direction, wp, ip, active):
     """Per-lane set-up of plane `ip`: the u-extent slab, the candidate
-    window in t and in wire index k (reference: photon.h:137-213)."""
+    window in t and in wire index k (reference: photon.h:137-213).
+
+    The window in k is the ray's slab chord: the wires whose v lies
+    within the radius of the chord through |n| <= radius (where alone a
+    wire can be met, and v is linear in t), widened by one wire on each
+    side so that the rounding of the slab times never shuts out a wire
+    that can be hit. The JAX package and photon.h stretch it back to the
+    v of the ray's origin, which adds only wires a ray from outside the
+    slab cannot reach."""
     u_ax, v_ax, n_ax = wp.u[ip], wp.v[ip], wp.w[ip]
     pitch, radius = wp.pitch[ip], wp.radius[ip]
     umin, umax = wp.umin[ip], wp.umax[ip]
@@ -115,13 +123,15 @@ def _plane_window(pos, direction, wp, ip, active):
     span = (pitch + 2.0 * radius) / torch.clamp(torch.abs(dv), min=1e-12)
     t_hi = torch.where(grazing, torch.minimum(t_hi, t_lo + span), t_hi)
 
+    # the wires of the slab chord, and one more on each side so that the
+    # rounding of the slab times never shuts out a wire that can be hit
     v_entry = fma(dv, t_lo, wv0)
     v_exit = fma(dv, t_hi, wv0)
-    v_lo = torch.minimum(torch.minimum(v_entry, v_exit), wv0) - pad
-    v_hi = torch.maximum(torch.maximum(v_entry, v_exit), wv0) + pad
+    v_lo = torch.minimum(v_entry, v_exit) - pad
+    v_hi = torch.maximum(v_entry, v_exit) + pad
 
-    k_lo = torch.maximum(torch.floor(v_lo / pitch), kmin)
-    k_hi = torch.minimum(torch.ceil(v_hi / pitch), kmax)
+    k_lo = torch.maximum(torch.floor(v_lo / pitch) - 1.0, kmin)
+    k_hi = torch.minimum(torch.ceil(v_hi / pitch) + 1.0, kmax)
     valid = valid & (k_lo <= k_hi)
     # a finite iteration count even for degenerate rays
     k_hi = torch.minimum(k_hi, k_lo + MAX_WINDOW)

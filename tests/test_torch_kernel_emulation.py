@@ -15,8 +15,10 @@ scans, 64-bit atomicMin) run here on CPU tensors, against:
     holds every boundary class: integer fields equal and floats to rtol
     1e-5 on all but 0.1% of the lanes (glibc's transcendentals are not
     libdevice's, nor torch's);
-  * walk_plain (K3): equal bit for bit on three wire planes; on rays that
-    force ties (coinciding planes, rays through a wire's axis) walk_plain's
+  * walk_plain (K3): equal bit for bit on three wire planes, and on rays
+    0.5-3 m from three MicroBooNE-pitch planes (where the window is the
+    slab chord and the origin lies far outside it); on rays that force
+    ties (coinciding planes, rays through a wire's axis) walk_plain's
     planes;
   * chroma_tpu.ops.photon.propagate_step on demo.tiny(): a step of the
     host-built k2_pre, the plain walk and the host-built k2_post, with the
@@ -49,6 +51,7 @@ from test_torch_cuda import (_device_bomb, _optics_box, _tie_box, _wire_box,
 from test_torch_host import J, T
 from test_torch_photon import jax_blocks, torch_state
 from test_torch_surfaces import assert_lanes_agree
+from wire_cases import far_rays, microboone_planes
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'tools_torch'))
@@ -207,10 +210,11 @@ def test_post_kernel_matches_plain(host, geometries, kind, block):
         assert max(map(len, per_block)) == 6, per_block
 
 
-@pytest.mark.parametrize('kind', ['wires', 'ties'])
+@pytest.mark.parametrize('kind', ['wires', 'far', 'ties'])
 def test_wire_kernel_matches_plain(host, geometries, kind):
     """K3's warp walk against walk_plain. Three U/V/Y planes, rays 40 mm
-    below them: equal bit for bit. Rays that force ties (two coinciding
+    below them, and three MicroBooNE-pitch planes 2 m square, rays 0.5 m
+    to 3 m from them: equal bit for bit. Rays that force ties (two coinciding
     planes, rays through a wire's axis, rays from inside a wire): planes
     equal to walk_plain's and floats to rtol 1e-6 -- torch's CPU sqrt is not
     correctly rounded (an ulp off on a few of these rays), glibc's and the
@@ -220,6 +224,11 @@ def test_wire_kernel_matches_plain(host, geometries, kind):
         state = _state(ga, kind, N, 25, steps=0)
         pos, d = state.pos, state.dir
         active = torch.rand(N, generator=torch.Generator().manual_seed(26)) \
+            > 0.1
+    elif kind == 'far':
+        ga = ttypes.build_geometry_arrays(microboone_planes())
+        pos, d = (torch.from_numpy(x) for x in far_rays(N, seed=30))
+        active = torch.rand(N, generator=torch.Generator().manual_seed(31)) \
             > 0.1
     else:
         ga = ttypes.build_geometry_arrays(_tie_box())
@@ -231,7 +240,7 @@ def test_wire_kernel_matches_plain(host, geometries, kind):
     ref = wireplane.walk_plain(pos, d, ga, active)
     assert torch.equal(got[1], ref[1]) and int((ref[1] >= 0).sum()) > 50
     for a, b in zip(got[::2] + got[3:], ref[::2] + ref[3:]):
-        if kind == 'wires':
+        if kind != 'ties':
             assert torch.equal(a, b)
         else:
             torch.testing.assert_close(a, b, rtol=1e-6, atol=0.0)

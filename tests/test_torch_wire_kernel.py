@@ -12,10 +12,11 @@ the floats within 1e-4 mm): it solves about the closest approach on
 purpose, where JAX's f32 quadratic from the ray's origin loses the
 wire's radius to rounding. On rays 0.5 m to 3 m from
 three MicroBooNE-pitch planes walk_plain and intersect_wireplanes are
-the float64 solve's. The plane table K3 reads holds the
-planes' fields in its documented columns, `walk` dispatches to the plain
-twin on the CPU without counting a launch, and intersect_wireplanes is
-the classification of the walk."""
+the float64 solve's, and walk_plain is bit for bit a walk of every wire
+(its window, the ray's slab chord, shuts out no wire that can be hit).
+The plane table K3 reads holds the planes' fields in its documented
+columns, `walk` dispatches to the plain twin on the CPU without counting
+a launch, and intersect_wireplanes is the classification of the walk."""
 import numpy as np
 import pytest
 import torch
@@ -25,6 +26,7 @@ from chroma_tpu.ops import types as jtypes
 from chroma_tpu.ops import wireplane as jwire
 from chroma_tpu_torch.ops import types as ttypes
 from chroma_tpu_torch.ops import cuda_build, wire_kernel, wireplane
+from chroma_tpu_torch.ops.linalg import fma
 
 from test_torch_host import J, T, same_native_kit  # noqa: F401
 from test_torch_wireplane import _rays, lartpc
@@ -130,6 +132,73 @@ def test_walk_plain_is_exact_on_far_rays(microboone):
     assert hit.sum() > 200 and (sure & (plane64 < 0)).sum() > 200
     np.testing.assert_allclose(got[0].numpy()[hit], t64[hit], rtol=0,
                                atol=1e-3)
+
+
+def _every_wire_walk(pos, direction, geometry, active):
+    """walk_plain's wire test and tie rule with no window: each plane's
+    wires kmin..kmax in ascending order, in f32 with the same roundings,
+    a hit kept only when strictly nearer; the planes combined in order."""
+    wp = geometry.wireplanes
+    n = pos.shape[0]
+    best = (torch.full((n,), torch.inf),
+            torch.full((n,), -1, dtype=torch.int32), torch.zeros(n),
+            torch.zeros(n))
+    for ip in range(wp.pitch.shape[0]):
+        (_, _, _, t_in, t_out, du, dv, dn, wu, wv0, wn0, pitch, radius, umin,
+         umax) = wireplane._plane_window(pos, direction, wp, ip, active)
+        kmin = int(torch.ceil((wp.vmin[ip] - wp.v0[ip]) / pitch))
+        kmax = int(torch.floor((wp.vmax[ip] - wp.v0[ip]) / pitch))
+        a_coef = fma(dv, dv, dn * dn)
+        r2 = radius * radius
+        eps0 = torch.clamp(1e-6 * r2, min=1e-12)
+        inv_a = 1.0 / torch.where(a_coef > 0.0, a_coef, 1.0)
+        t_best = torch.full((n,), torch.inf)
+        vn_best, nn_best = torch.zeros(n), torch.zeros(n)
+        for k in range(kmin, kmax + 1):
+            wv = fma(torch.full((n,), -float(k)), pitch, wv0)
+            t0 = -fma(wv, dv, wn0 * dn) * inv_a
+            ev = fma(dv, t0, wv)
+            en = fma(dn, t0, wn0)
+            h2 = (r2 - fma(ev, ev, en * en)) * inv_a
+            half = torch.sqrt(torch.clamp(h2, min=0.0))
+            r2_0 = fma(wv, wv, wn0 * wn0)
+            outside, inside = r2_0 > r2 + eps0, r2_0 < r2 - eps0
+            t = torch.where(outside, t0 - half,
+                            torch.where(inside, t0 + half, wireplane.T_MIN))
+            uc = fma(du, t, wu)
+            ok = active & (h2 >= 0.0) & (a_coef > 0.0) \
+                & (t > wireplane.T_MIN) & (uc >= umin) & (uc <= umax) \
+                & (t >= t_in) & (t <= t_out) & (t < t_best)
+            t_best = torch.where(ok, t, t_best)
+            vn_best = torch.where(ok, fma(dv, t, wv), vn_best)
+            nn_best = torch.where(ok, fma(dn, t, wn0), nn_best)
+        closer = t_best < best[0]
+        best = (torch.where(closer, t_best, best[0]),
+                torch.where(closer, ip, best[1]),
+                torch.where(closer, vn_best, best[2]),
+                torch.where(closer, nn_best, best[3]))
+    return best
+
+
+def test_window_is_the_slab_chord(microboone):
+    """On rays 0.5 m to 3 m from three MicroBooNE-pitch planes, walk_plain
+    equals bit for bit a walk of every wire of every plane with the same
+    wire test and tie rule: no wire outside the window -- the ray's chord
+    through the slab |n| <= radius, one wire more on each side -- can be
+    hit. And the window holds a few wires a plane, not the hundreds
+    between the chord and the ray's origin."""
+    pos, d = (torch.from_numpy(x) for x in far_rays(4096))
+    active = torch.ones(4096, dtype=torch.bool)
+    got = wireplane.walk_plain(pos, d, microboone, active)
+    want = _every_wire_walk(pos, d, microboone, active)
+    assert int((want[1] >= 0).sum()) > 200
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    windows = torch.stack(wireplane.candidate_windows(pos, d, microboone,
+                                                      active))
+    valid = windows > 0
+    assert int(valid.sum()) > 4096
+    assert float(windows.sum()) / int(valid.sum()) <= 6.0
 
 
 def test_intersect_wireplanes_is_exact_on_far_rays(microboone):
